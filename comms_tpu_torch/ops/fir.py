@@ -1,0 +1,225 @@
+"""Streaming FIR filtering as a banded-Toeplitz matrix product.
+
+Counterpart of :mod:`comms_tpu.ops.fir`.  A block of N samples is
+filtered as one matrix product
+
+    Y[r, p] = sum_k taps[k] * xext[r*P + p - k + (T-1)]
+            = (W @ B)[r, p]
+
+where ``W`` is the windowed input ([R, T+P-1], rows overlapping by
+T-1 samples) and ``B`` the banded tap matrix ([T+P-1, P]).  ``W`` is a
+``Tensor.unfold`` view of the padded input, not a gather; the product
+is ``torch.matmul``.  Real taps on complex input run as two real
+products on the re/im planes.
+
+Streaming semantics: the carried state is the last ``T-1`` input
+samples (oldest first), so output does not depend on how the stream is
+chopped into blocks.
+
+The host helpers (``banded_tap_matrix``, ``decimating_branch_taps``,
+``_decimating_banded_matrix``) are numpy, computed once per tap set;
+their device copies are cached by content.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = [
+    "init_ctx",
+    "banded_tap_matrix",
+    "fir_block",
+    "decimating_branch_taps",
+    "fir_decimate_poly",
+]
+
+# Output phases per GEMM row (the JAX package's MXU lane width; kept so
+# that both packages build the same band matrices).
+_DEFAULT_PHASES = 128
+
+def init_ctx(num_taps: int, dtype=torch.complex64, device="cpu"):
+    """Zero carried context (the reference's default zero state)."""
+    return torch.zeros(max(num_taps - 1, 0), dtype=dtype, device=device)
+
+
+def banded_tap_matrix(taps, phases: int = _DEFAULT_PHASES) -> np.ndarray:
+    """Banded Toeplitz matrix B[i, p] = taps[T-1+p-i] (0 outside band).
+    Host-side (numpy)."""
+    taps = np.asarray(taps)
+    T = taps.shape[0]
+    P = int(phases)
+    i = np.arange(T + P - 1)[:, None]
+    p = np.arange(P)[None, :]
+    k = T - 1 + p - i
+    valid = (k >= 0) & (k < T)
+    B = np.where(valid, taps[np.clip(k, 0, T - 1)], 0)
+    return B.astype(taps.dtype)
+
+
+def _band_on(taps: np.ndarray, phases: int, decimating: bool,
+             device) -> torch.Tensor:
+    """The band matrix of host ``taps`` on ``device``: built and copied
+    to the device once per content, phases and device, not per block.
+    ``taps`` is a 1-D tap vector or a ready 2-D band (dense), or the
+    [M, D] branch matrix of :func:`decimating_branch_taps`."""
+    t = np.ascontiguousarray(taps)
+    return _cached_band(t.tobytes(), t.shape, t.dtype.str, int(phases),
+                        decimating, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_band(raw: bytes, shape: tuple, np_dtype: str, phases: int,
+                 decimating: bool, device: str) -> torch.Tensor:
+    t = np.frombuffer(raw, dtype=np_dtype).reshape(shape)
+    if decimating:
+        B = _decimating_banded_matrix(_flat_from_branches(t), shape[1],
+                                      phases)
+    elif t.ndim == 1:
+        B = banded_tap_matrix(t, phases)
+    else:
+        B = t.copy()
+    return torch.from_numpy(B).to(device)
+
+
+def _window_rows_strided(xpad, rows: int, stride: int, width: int):
+    """W[r, i] = xpad[r*stride + i] for i < width: a strided view.
+    Requires len(xpad) >= (rows - 1)*stride + width."""
+    return xpad.unfold(0, width, stride)[:rows]
+
+
+def _window_rows(xext, rows: int, phases: int, taps_len: int):
+    """W[r, :] = xext[r*P : r*P + T+P-1] (row stride == phases)."""
+    return _window_rows_strided(xext, rows, phases, taps_len + phases - 1)
+
+
+def _pad_tail(x, length: int):
+    """Zero-extend ``x`` to at least ``length`` samples."""
+    pad = length - x.shape[0]
+    if pad <= 0:
+        return x
+    return torch.cat([x, x.new_zeros(pad)])
+
+
+def _banded_product(xpad, B, windows):
+    """(W @ B) with W = ``windows(xpad)``.  Real taps on complex data:
+    two real products on the planes (B is shared)."""
+    if xpad.is_complex() and not B.is_complex():
+        Br = B.to(xpad.real.dtype)
+        return torch.complex(windows(xpad.real) @ Br,
+                             windows(xpad.imag) @ Br)
+    out_dtype = torch.promote_types(xpad.dtype, B.dtype)
+    return windows(xpad.to(out_dtype)) @ B.to(out_dtype)
+
+
+def fir_block(x, taps, ctx, phases: int = _DEFAULT_PHASES):
+    """Filter one block.  Returns (y, new_ctx); y.shape == x.shape.
+
+    ``taps`` may be a host (numpy) 1-D tap vector, or a precomputed
+    ``banded_tap_matrix`` (2-D, numpy or tensor) whose band length
+    implies T.  Float32 products run in full float32: TF32 stays off
+    (``torch.backends.cuda.matmul.allow_tf32`` is False by default and
+    nothing here turns it on).
+    """
+    N = x.shape[0]
+    if isinstance(taps, torch.Tensor):
+        B = taps.to(x.device)
+    else:
+        B = _band_on(np.asarray(taps), phases, False, x.device)
+    P = B.shape[1]
+    T = B.shape[0] - P + 1
+    if T == 1:
+        out_dtype = torch.promote_types(x.dtype, B.dtype)
+        return x.to(out_dtype) * B[0, 0], ctx
+
+    xext = torch.cat([ctx.to(x.dtype), x])            # [T-1 + N]
+    new_ctx = xext[-(T - 1):]
+    R = -(-N // P)
+    width = T + P - 1
+    xpad = _pad_tail(xext, (R - 1) * P + width)
+    Y = _banded_product(xpad, B,
+                        lambda v: _window_rows(v, R, P, T))   # [R, P]
+    return Y.reshape(R * P)[:N], new_ctx
+
+
+def decimating_branch_taps(taps, rate: int) -> np.ndarray:
+    """taps[T] -> C[M, rate] with C[k-1, c] = taps[k*rate - 1 - c]
+    (zero where out of range), M = ceil(T/rate).  Host-side."""
+    taps = np.asarray(taps)
+    D = int(rate)
+    M = -(-taps.shape[0] // D)
+    flat = np.zeros(M * D, dtype=taps.dtype)
+    flat[: taps.shape[0]] = taps
+    C = np.zeros((M, D), dtype=taps.dtype)
+    for k in range(1, M + 1):
+        for c in range(D):
+            C[k - 1, c] = flat[k * D - 1 - c]
+    return C
+
+
+def _flat_from_branches(C: np.ndarray) -> np.ndarray:
+    """Invert :func:`decimating_branch_taps`: C[k-1, c] = flat[k*D-1-c]."""
+    M, D = C.shape
+    flat = np.zeros(M * D, dtype=C.dtype)
+    for k in range(1, M + 1):
+        for c in range(D):
+            flat[k * D - 1 - c] = C[k - 1, c]
+    return flat
+
+
+def _decimating_banded_matrix(flat_taps: np.ndarray, rate: int,
+                              phases: int) -> np.ndarray:
+    """B2[i, p] = flat[p*D + M*D-1 - i] (0 outside the band): the
+    decimating analogue of :func:`banded_tap_matrix`, columns strided
+    by D so the product yields ONLY the kept outputs.  Host-side."""
+    D, P = int(rate), int(phases)
+    MD = flat_taps.shape[0]
+    width = (P - 1) * D + MD
+    i = np.arange(width)[:, None]
+    p = np.arange(P)[None, :]
+    t = p * D + MD - 1 - i
+    valid = (t >= 0) & (t < MD)
+    return np.where(valid, flat_taps[np.clip(t, 0, MD - 1)],
+                    0).astype(flat_taps.dtype)
+
+
+def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES):
+    """Polyphase decimating FIR: computes ONLY the kept outputs.
+
+        y[m] = sum_t taps[t] * x[m*D - t]
+
+    ``Hb = C`` is the host-prepared [M, D] coefficient matrix from
+    :func:`decimating_branch_taps`; ``ctx`` is the carried input tail
+    of M*D - 1 samples.  len(x) % D == 0.  Returns ``(y[N//D],
+    new_ctx)``.  Identical to ``fir_block`` + ``[::D]`` when the block
+    length divides D (both keep index 0).
+    """
+    C = np.asarray(Hb)
+    M, D = C.shape
+    N = x.shape[0]
+    if N % D:
+        raise ValueError(f"block {N} not a multiple of rate {D}")
+    frames = N // D
+    T_pad = M * D
+    P = int(phases)
+    B2 = _band_on(C, P, True, x.device)
+    width = (P - 1) * D + T_pad
+
+    xe = torch.cat([ctx.to(x.dtype), x])               # [T_pad - 1 + N]
+    new_ctx = xe[-(T_pad - 1):] if T_pad > 1 else ctx
+    y = _decimate_gemm_core(xe, B2, D, P, frames, width)
+    return y, new_ctx
+
+
+def _decimate_gemm_core(xe, B2, D: int, P: int, frames: int, width: int):
+    """Strided-window banded product: ``y[frames]`` with
+    ``y[m] = sum_i xe[m*D + i] * B2[i, m % P]`` over the row window
+    (see :func:`_decimating_banded_matrix` for the band layout)."""
+    R = -(-frames // P)
+    stride = P * D
+    xpad = _pad_tail(xe, (R - 1) * stride + width)
+    Y = _banded_product(
+        xpad, B2, lambda v: _window_rows_strided(v, R, stride, width))
+    return Y.reshape(R * P)[:frames]
