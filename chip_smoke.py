@@ -1,28 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's FM broadcast receiver on one CUDA card.
+"""Drive the PyTorch/CUDA port on one CUDA card: the FM broadcast
+receiver and the wideband FM band monitor.
 
     python3 chip_smoke.py        # from the repository root
 
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the fused FM kernel from ``comms_tpu_torch/csrc`` (nvcc);
-3. kernel against its plain PyTorch version on the card, at the
-   26,214,400-sample block (from the stream-start context and from a
-   mid-stream one) and on white noise;
-4. the main path, ``run_file`` over a capture of three full blocks and a
-   ragged tail, fused and unfused, plus a small capture against the
-   CPU run of the same code;
-5. serving: ``StreamRunner`` over the fused block step, 8 blocks
-   after 3 warm-up blocks, state chained, depth 4, from device-resident
-   and from pinned host blocks;
-6. the dense 262,144-sample block of the reference's entry config, on
-   the card against the CPU;
-7. kernel and plain-version times at the full block (CUDA events).
+2. build the kernels from ``comms_tpu_torch/csrc`` (one nvcc per source,
+   in parallel) and print ptxas's register and spill report;
+3. FM: the fused FM kernel against its plain PyTorch version on the
+   card, at the 26,214,400-sample block (from the stream-start context
+   and from a mid-stream one) and on white noise;
+4. FM main path: ``run_file`` over a capture of three full blocks and a
+   ragged tail, fused and unfused, plus a small capture against the CPU
+   run of the same code; ``StreamRunner`` over the fused block step, 8
+   blocks after 3 warm-up blocks, state chained, depth 4, from
+   device-resident and from pinned host blocks; the dense
+   262,144-sample block of the reference's entry config, on the card
+   against the CPU;
+5. band monitor kernels against their plain versions at the main path's
+   shapes: the channelizer (K=64 and K=16, 16,777,216 samples, zero and
+   mid-stream context), the decimating FIR (the staged audio stage's
+   batch of 8 channel pairs) and its poly-FIR entry (dec 5, 63 and 641
+   taps), the fused band monitor (K=16 and K=64, 16,777,216 samples,
+   zero and mid-stream state) on a capture with one FM station at the
+   centre of every channel, and on white noise at 3 x 16,384 samples;
+6. band monitor main path: ``StreamRunner`` over the fused block step
+   at K=16, 8 blocks of 16,777,216 after 3 warm-up blocks, depth 4,
+   state chained, from device-resident and from pinned host blocks; the
+   staged block step (channelizer + decimating-FIR kernels) and the
+   64-channel channelizer model on the same blocks; fused against
+   staged, each channel's tone against its spectrum, and exact launch
+   counts per kernel;
+7. kernel and plain-version times at the main paths' shapes (CUDA
+   events), each beside the card's name and power limit.
 
-The input is a synthetic FM broadcast capture made with numpy from a
-fixed seed.  The line before the last is the kernel table as JSON; the
-last line is ``{"ok": true, "device": {...}}``.
+The inputs are synthetic captures made from fixed seeds (numpy for the
+FM receiver, torch on the card for the band monitor).  The line before
+the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -54,6 +71,22 @@ TOL_NOISE = 1e-3
 TOL_PATHS = 1e-3        # fused vs unfused run_file (the JAX bound)
 TOL_DENSE = 1e-4        # dense block on the card vs the CPU
 REPO = Path(__file__).resolve().parent
+
+# Band monitor (bench.py:488-625): the wideband block, the fused K=16
+# configuration served, and the K=64 BASELINE channelizer.
+BM_BLOCK = 16_777_216
+BM_K = 16
+BM_K64 = 64
+BM_NOISE = 16_384       # white noise runs at 3 x this
+POLY_DEC = 5
+POLY_N = 409 * 64 * POLY_DEC * 128   # 16,752,640: the poly entry's quantum
+# Kernel vs plain, relative to the plain output's largest magnitude: the
+# JAX package's parity bounds for the same kernels (float32 on both
+# sides here, in other summation orders).  On the station capture every
+# phase step stays within about +-pi/2, far from the atan2 branch cut.
+TOL_CHAN = 1e-5
+TOL_FIR = 5e-5
+TOL_BM = 2e-4
 
 
 def fail(msg: str):
@@ -107,40 +140,15 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def main() -> None:
+def fm_receiver_phases(dev, card: str) -> dict:
+    """Phases 3, 4 and the FM part of 7; returns K1's kernel-table row."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this needs a CUDA card")
-    import comms_tpu_torch
-    if Path(comms_tpu_torch.__file__).resolve().parents[1] != REPO:
-        fail(f"comms_tpu_torch imported from {comms_tpu_torch.__file__}, "
-             f"not from this checkout")
-    from comms_tpu_torch.kernels import _build
     from comms_tpu_torch.kernels import fm_chain as K
     from comms_tpu_torch.models import fm_receiver as fm
     from comms_tpu_torch.runtime import StreamRunner
 
-    # ---- 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
-    if torch.backends.cuda.matmul.allow_tf32:
-        fail("TF32 matmul is on; the plain version must run in float32")
-    dev = torch.device("cuda")
     taps = fm.FM_LPF_TAPS
-
-    # ---- 2. build
-    t0 = time.perf_counter()
-    _build.load()
-    build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")
-
     n_total = 3 * BLOCK + RAGGED
     t0 = time.perf_counter()
     iq, w = synth_capture(n_total, seed=0)
@@ -150,7 +158,7 @@ def main() -> None:
         x = torch.from_numpy(iq[a:b]).to(dev)
         return x[:, 0].contiguous(), x[:, 1].contiguous()
 
-    # ---- 3. kernel vs plain
+    # ---- 3. FM kernel vs plain
     L0 = K.launches
     re0, im0 = planes(0, BLOCK)
     re1, im1 = planes(BLOCK, 2 * BLOCK)
@@ -184,7 +192,7 @@ def main() -> None:
         fail(f"expected 4 launches in phase 3, counted {K.launches - L0}")
     max_abs_err = max(errs["zero_ctx"], errs["mid_stream_ctx"])
 
-    # ---- 4-6. the main path: counts start at 0 here
+    # ---- 4. the FM main path: counts start at 0 here
     K.launches = 0
     cfg = fm.FmReceiverConfig(block=BLOCK)
     with tempfile.TemporaryDirectory() as tmp:
@@ -281,7 +289,7 @@ def main() -> None:
     print(f"fm_chain at N={BLOCK} on {card}: kernel {ms:.4f} ms "
           f"({BLOCK / ms / 1e6:.2f} Gsps), plain {plain_ms:.4f} ms")
 
-    print(json.dumps({"kernels": [{
+    return {
         "name": "fm_chain_fused",
         "route": "cuda",
         "source": "comms_tpu_torch/csrc/fm_chain.cu",
@@ -290,7 +298,397 @@ def main() -> None:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+    }
+
+
+def print_ptxas_report(build) -> None:
+    """Registers and spills over the built kernel functions."""
+    import re
+
+    log = Path(f"{build.library_path()}.log")
+    if not log.exists():
+        print("ptxas: no report (the library was built before this run)")
+        return
+    text = log.read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                           text))
+    print(f"ptxas: {len(regs)} kernel functions, {min(regs)}-{max(regs)} "
+          f"registers per thread, {spill} bytes of spill stores")
+
+
+def station_capture(n: int, k: int, seed: int, dev):
+    """f32 planes [n] on the card: one FM station at the centre of each
+    of the k channels, station c carrying a tone at 0.01 + 0.04*c/(k-1)
+    of the channel rate with a deviation of 0.25 of the channel spacing
+    (the JAX package's tests/test_band_monitor_pallas.py:126-141), the
+    sum scaled by 1/k, plus Gaussian noise of sigma 0.01.  Every phase
+    step per channel frame stays within about +-pi/2.  Returns (re, im,
+    tones in cycles per channel frame)."""
+    import torch
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    t = torch.arange(n, **f64)
+    re = torch.zeros(n, **f64)
+    im = torch.zeros(n, **f64)
+    tones = []
+    for c in range(k):
+        fa = 0.01 + 0.04 * c / (k - 1)
+        tones.append(fa)
+        ph = (2 * np.pi * c / k) * t + (2 * np.pi * 0.25 / k) * torch.cumsum(
+            torch.sin((2 * np.pi * fa / k) * t), 0)
+        re += torch.cos(ph)
+        im += torch.sin(ph)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    re = re / k + 0.01 * torch.randn(n, generator=g, **f64)
+    im = im / k + 0.01 * torch.randn(n, generator=g, **f64)
+    return re.float(), im.float(), tones
+
+
+def rel_err(got, want) -> float:
+    return max_err(got, want) / float(want.abs().max().item())
+
+
+def tone_ratios(audio, tones, dec: int):
+    """Per channel: the spectrum's value at the channel's tone over its
+    median (audio [K, n] on the card, first 64 samples skipped)."""
+    import torch
+
+    a = audio[:, 64:].double()
+    a = a - a.mean(dim=1, keepdim=True)
+    w = torch.hann_window(a.shape[1], periodic=False, dtype=a.dtype,
+                          device=a.device)
+    X = torch.fft.rfft(a * w, dim=1).abs()
+    f = torch.fft.rfftfreq(a.shape[1], 1.0, device=a.device)
+    out = []
+    for c, fa in enumerate(tones):
+        b = int((f - fa * dec).abs().argmin())
+        out.append(float(X[c, b] / X[c].median()))
+    return out
+
+
+def band_monitor_phases(dev, card: str) -> list:
+    """Phases 5, 6 and the band-monitor part of 7; returns the kernel
+    table rows of K8, K2, the K3 entry and K9."""
+    import torch
+
+    from comms_tpu_torch.kernels import band_monitor as BM
+    from comms_tpu_torch.kernels import channelizer as CK
+    from comms_tpu_torch.kernels import decim_fir as DF
+    from comms_tpu_torch.kernels import fm_chain as FK
+    from comms_tpu_torch.models import channelizer as chm
+    from comms_tpu_torch.models import fm_band_monitor as bm
+    from comms_tpu_torch.runtime import StreamRunner
+
+    # Plain-version calls, counted so that the main path can show none.
+    plain_calls = [0]
+
+    def counting(fn):
+        def wrapped(*a, **kw):
+            plain_calls[0] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for mod in (CK, DF, BM):
+        mod._plain = counting(mod._plain)
+
+    t0 = time.perf_counter()
+    re16, im16, tones16 = station_capture(3 * BM_BLOCK, BM_K, 1, dev)
+    re64, im64, _ = station_capture(2 * BM_BLOCK, BM_K64, 2, dev)
+    torch.cuda.synchronize()
+    print(f"station captures: 3 x {BM_BLOCK} (K={BM_K}) and 2 x "
+          f"{BM_BLOCK} (K={BM_K64}) in {time.perf_counter() - t0:.1f} s")
+
+    def blk(x, b):
+        return x[b * BM_BLOCK:(b + 1) * BM_BLOCK]
+
+    cfg = bm.BandMonitorConfig(num_channels=BM_K, block=BM_BLOCK)
+    cfg64 = bm.BandMonitorConfig(num_channels=BM_K64, block=BM_BLOCK)
+    errs = {}
+
+    # ---- 5a. channelizer kernel vs plain (K=64 BASELINE and K=16)
+    for k, re, im in ((BM_K64, re64, im64), (BM_K, re16, im16)):
+        h = (cfg64 if k == BM_K64 else cfg).prototype
+        zc = torch.zeros(CK.CTX_SAMPLES, device=dev)
+        for name, b, cr, ci in (
+                ("zero_ctx", 0, zc, zc),
+                ("mid_stream_ctx", 1, blk(re, 0)[-CK.CTX_SAMPLES:],
+                 blk(im, 0)[-CK.CTX_SAMPLES:])):
+            got = CK.channelize_planar(blk(re, b), blk(im, b), h, cr, ci, k)
+            want = CK.channelize_plain(blk(re, b), blk(im, b), h, cr, ci, k)
+            torch.cuda.synchronize()
+            for g, w in zip(got[:2], want[:2]):
+                if g.shape != (BM_BLOCK // k, k) or not torch.isfinite(
+                        g).all():
+                    fail(f"channelizer K={k} {name}: shape "
+                         f"{tuple(g.shape)} or non-finite values")
+                e = rel_err(g, w)
+                if e > TOL_CHAN:
+                    fail(f"channelizer K={k} {name}: {e} > {TOL_CHAN}")
+                errs[f"channelize_K{k}_{name}"] = (max_err(g, w), e)
+
+    # ---- 5b. decimating FIR at the staged audio stage's shapes, and
+    # the poly-FIR entry at dec 5 with 63 and 641 taps
+    rng = np.random.default_rng(3)
+    rows, n_ch = BM_K // 2, BM_BLOCK // BM_K
+    W = cfg.audio_dec * 128
+    tile = bm._audio_tile_rows(cfg)
+
+    def dev_normal(*shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    dr, di = dev_normal(rows, n_ch), dev_normal(rows, n_ch)
+    fcr, fci = dev_normal(rows, W), dev_normal(rows, W)
+    got = DF.fir_decimate_planar(dr, di, cfg.audio_taps, cfg.audio_dec,
+                                 fcr, fci, tile_rows=tile)
+    want = DF.fir_decimate_plain(dr, di, cfg.audio_taps, cfg.audio_dec,
+                                 fcr, fci)
+    torch.cuda.synchronize()
+    g, w = torch.complex(got[0], got[1]), torch.complex(*want)
+    errs["fir_decimate_staged"] = (max_err(g, w), rel_err(g, w))
+    pr, pi = dev_normal(POLY_N), dev_normal(POLY_N)
+    pcr = dev_normal(DF.CTX_ROWS * POLY_DEC * 128)
+    pci = dev_normal(DF.CTX_ROWS * POLY_DEC * 128)
+    poly_taps = {n: rng.normal(size=n) for n in (63, 641)}
+    for n, h in poly_taps.items():
+        got = DF.poly_fir_planar(pr, pi, h, pcr, pci, POLY_DEC)
+        want = DF.fir_decimate_plain(pr, pi, h, POLY_DEC, pcr, pci)
+        torch.cuda.synchronize()
+        g, w = torch.complex(got[0], got[1]), torch.complex(*want)
+        errs[f"poly_fir_{n}_taps"] = (max_err(g, w), rel_err(g, w))
+    for name in ("fir_decimate_staged", "poly_fir_63_taps",
+                 "poly_fir_641_taps"):
+        if not errs[name][1] <= TOL_FIR:
+            fail(f"{name}: {errs[name]} beyond {TOL_FIR}")
+
+    # ---- 5c. fused band monitor vs plain on the station captures, from
+    # zero and mid-stream state, then on white noise
+    for c, re, im in ((cfg, re16, im16), (cfg64, re64, im64)):
+        args = (c.prototype, c.audio_taps, c.audio_dec)
+        st = bm.init_state_fused(c, dev)
+        for name, b in (("zero_state", 0), ("mid_stream_state", 1)):
+            got = BM.band_monitor_planar(blk(re, b), blk(im, b), *args, *st,
+                                         num_channels=c.num_channels)
+            want = BM.band_monitor_plain(blk(re, b), blk(im, b), *args,
+                                         *st, num_channels=c.num_channels)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got[0]).all():
+                fail(f"band monitor K={c.num_channels} {name}: non-finite")
+            e = rel_err(got[0], want[0])
+            es = max(rel_err(got[3], want[3]), rel_err(got[4], want[4]))
+            if e > TOL_BM or es > TOL_CHAN or not (
+                    torch.equal(got[1], want[1])
+                    and torch.equal(got[2], want[2])):
+                fail(f"band monitor K={c.num_channels} {name}: audio "
+                     f"{e}, spectrum tail {es}")
+            errs[f"band_monitor_K{c.num_channels}_{name}"] = (
+                max_err(got[0], want[0]), e)
+            st = got[1:]
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    for c in (cfg, cfg64):
+        args = (c.prototype, c.audio_taps, c.audio_dec)
+        sk = sp = bm.init_state_fused(c, dev)
+        for _ in range(3):
+            x = torch.randn(2, BM_NOISE, generator=g, device=dev)
+            got = BM.band_monitor_planar(x[0], x[1], *args, *sk,
+                                         num_channels=c.num_channels)
+            want = BM.band_monitor_plain(x[0], x[1], *args, *sp,
+                                         num_channels=c.num_channels)
+            torch.cuda.synchronize()
+            e = rel_err(got[0], want[0])
+            if e > TOL_BM:
+                fail(f"band monitor K={c.num_channels} white noise: {e}")
+            key = f"band_monitor_K{c.num_channels}_white_noise"
+            errs[key] = max(errs.get(key, (0.0, 0.0)),
+                            (max_err(got[0], want[0]), e))
+            sk, sp = got[1:], want[1:]
+    print("band monitor kernels vs plain (max abs err, relative):",
+          json.dumps(errs))
+
+    # ---- 6. the band monitor main path: every count starts at 0 here
+    CK.launches = DF.launches = BM.launches = FK.launches = 0
+    plain_calls[0] = 0
+    fblock = bm.make_fused_block_fn(cfg)
+    dev_blocks = [(blk(re16, b), blk(im16, b)) for b in range(3)]
+    host_blocks = [(r.cpu().pin_memory(), i.cpu().pin_memory())
+                   for r, i in dev_blocks]
+
+    def serve(blocks, n):
+        outs = []
+        torch.cuda.synchronize()
+        runner = StreamRunner(
+            lambda s, x: fblock(s, *x), bm.init_state_fused(cfg, dev),
+            (blocks[i % 3] for i in range(n)), sink=outs.append,
+            samples_of=lambda x: x[0].shape[0], depth=SERVE_DEPTH,
+            device=dev)
+        return runner.run().msps, outs
+
+    rates, served = {}, {}
+    for name, blocks in (("device", dev_blocks),
+                         ("pinned_host", host_blocks)):
+        serve(blocks, SERVE_WARMUP)
+        rates[name], served[name] = serve(blocks, SERVE_BLOCKS)
+    print(f"band monitor serving Msps (K={BM_K}, {SERVE_BLOCKS} blocks of "
+          f"{BM_BLOCK}, depth {SERVE_DEPTH}, after {SERVE_WARMUP} warm-up "
+          f"blocks) on {card}:", json.dumps(rates))
+    fused_counts = (BM.launches, CK.launches, DF.launches, plain_calls[0])
+    if fused_counts != (2 * (SERVE_WARMUP + SERVE_BLOCKS), 0, 0, 0):
+        fail(f"fused serving: (K9, K8, K2, plain) launches {fused_counts}")
+    for a, b in zip(served["device"], served["pinned_host"]):
+        if not np.array_equal(a, b):
+            fail("serving from device and from pinned host blocks differ")
+    if served["device"][0].shape != (BM_K, cfg.audio_per_channel):
+        fail(f"served audio shape {served['device'][0].shape}")
+
+    staged = bm.make_planar_block_fn(cfg)
+    st = bm.init_state(cfg, dev)
+    staged_out = []
+    for r, i in dev_blocks:
+        a, st = staged(st, r, i)
+        staged_out.append(a)
+    fused3 = torch.from_numpy(np.concatenate(served["device"][:3], 1)).to(
+        dev)
+    staged3 = torch.cat(staged_out, 1)
+    e_paths = rel_err(fused3, staged3)
+    ratios = tone_ratios(fused3, tones16, cfg.audio_dec)
+    print(f"fused vs staged (3 blocks): {e_paths:.3g} relative; tone peak "
+          f"over spectrum median per channel: "
+          f"{json.dumps([round(r, 1) for r in ratios])}")
+    if not e_paths <= TOL_BM:
+        fail(f"fused and staged band monitor disagree: {e_paths}")
+    if min(ratios) <= 10:
+        fail(f"a channel's tone does not stand out: {ratios}")
+
+    chcfg = chm.ChannelizerConfig(num_channels=BM_K64, block=BM_BLOCK)
+    ch_k, ch_t = (chm.make_planar_block_fn(chcfg),
+                  chm.make_planar_block_fn(chcfg, use_kernel=False))
+    sk = st_ = chm.init_state(chcfg, dev)
+    e_ch = 0.0
+    for r, i in dev_blocks:
+        (yr, yi), sk = ch_k(sk, r, i)
+        (tr, ti), st_ = ch_t(st_, r, i)
+        e_ch = max(e_ch, rel_err(yr, tr), rel_err(yi, ti))
+        if not torch.equal(sk, st_) or not torch.isfinite(yr).all():
+            fail("channelizer model: state or output wrong")
+    print(f"channelizer model (K={BM_K64}, 3 blocks): kernel vs tensor "
+          f"route {e_ch:.3g} relative")
+    if not e_ch <= TOL_CHAN:
+        fail(f"channelizer model routes disagree: {e_ch}")
+    torch.cuda.synchronize()
+    main_counts = {"band_monitor": BM.launches, "channelize": CK.launches,
+                   "fir_decimate": DF.launches, "fm_chain": FK.launches,
+                   "plain": plain_calls[0]}
+    print("band monitor main path launches:", json.dumps(main_counts))
+    want_counts = {"band_monitor": 2 * (SERVE_WARMUP + SERVE_BLOCKS),
+                   "channelize": 6, "fir_decimate": 3, "fm_chain": 0,
+                   "plain": 0}
+    if main_counts != want_counts:
+        fail(f"main path launches {main_counts}, expected {want_counts}")
+
+    # ---- 7. times at the main paths' shapes
+    mid64 = (blk(re64, 0)[-CK.CTX_SAMPLES:].clone(),
+             blk(im64, 0)[-CK.CTX_SAMPLES:].clone())
+    bm_state = BM.band_monitor_planar(
+        blk(re16, 0), blk(im16, 0), cfg.prototype, cfg.audio_taps,
+        cfg.audio_dec, *bm.init_state_fused(cfg, dev), num_channels=BM_K)[1:]
+    bm_args = (blk(re16, 1), blk(im16, 1), cfg.prototype, cfg.audio_taps,
+               cfg.audio_dec, *bm_state)
+    timed = {
+        "channelize": (
+            lambda: CK.channelize_planar(blk(re64, 1), blk(im64, 1),
+                                         cfg64.prototype, *mid64, BM_K64),
+            lambda: CK.channelize_plain(blk(re64, 1), blk(im64, 1),
+                                        cfg64.prototype, *mid64, BM_K64),
+            f"K={BM_K64}, N={BM_BLOCK}", BM_BLOCK),
+        "fir_decimate": (
+            lambda: DF.fir_decimate_planar(dr, di, cfg.audio_taps,
+                                           cfg.audio_dec, fcr, fci,
+                                           tile_rows=tile),
+            lambda: DF.fir_decimate_plain(dr, di, cfg.audio_taps,
+                                          cfg.audio_dec, fcr, fci),
+            f"{rows} rows x {n_ch}, dec {cfg.audio_dec}, "
+            f"{cfg.audio_taps.shape[0]} taps", 2 * rows * n_ch),
+        "poly_fir": (
+            lambda: DF.poly_fir_planar(pr, pi, poly_taps[63], pcr, pci,
+                                       POLY_DEC),
+            lambda: DF.fir_decimate_plain(pr, pi, poly_taps[63], POLY_DEC,
+                                          pcr, pci),
+            f"N={POLY_N}, dec {POLY_DEC}, 63 taps", POLY_N),
+        "band_monitor": (
+            lambda: BM.band_monitor_planar(*bm_args, num_channels=BM_K),
+            lambda: BM.band_monitor_plain(*bm_args, num_channels=BM_K),
+            f"K={BM_K}, N={BM_BLOCK}", BM_BLOCK),
+    }
+    times = {}
+    for name, (kern, plain, shape, n) in timed.items():
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain)
+        times[name] = (ms, plain_ms)
+        print(f"{name} at {shape} on {card}: kernel {ms:.4f} ms "
+              f"({n / ms / 1e6:.2f} Gsps), plain {plain_ms:.4f} ms")
+
+    def worst(prefix):
+        return max(v[0] for k, v in errs.items() if k.startswith(prefix))
+
+    src = "comms_tpu_torch/csrc/"
+    table = [
+        ("channelize", "channelizer.cu",
+         "comms_tpu/kernels/channelizer_pallas.py:305",
+         main_counts["channelize"], worst("channelize_")),
+        ("fir_decimate", "decim_fir.cu",
+         "comms_tpu/kernels/decim_fir_pallas.py:262",
+         main_counts["fir_decimate"], worst("fir_decimate_")),
+        # The poly-FIR entry launches the same kernel as fir_decimate;
+        # its count is that kernel's.
+        ("poly_fir", "decim_fir.cu",
+         "comms_tpu/kernels/poly_fir_pallas.py:173",
+         main_counts["fir_decimate"], worst("poly_fir_")),
+        ("band_monitor", "band_monitor.cu",
+         "comms_tpu/kernels/band_monitor_pallas.py:349",
+         main_counts["band_monitor"], worst("band_monitor_")),
+    ]
+    return [{"name": name, "route": "cuda", "source": src + f,
+             "replaces": rep, "launches": n, "max_abs_err": err,
+             "ms": times[name][0], "plain_ms": times[name][1]}
+            for name, f, rep, n, err in table]
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    import comms_tpu_torch
+    if Path(comms_tpu_torch.__file__).resolve().parents[1] != REPO:
+        fail(f"comms_tpu_torch imported from {comms_tpu_torch.__file__}, "
+             f"not from this checkout")
+    from comms_tpu_torch.kernels import _build
+
+    # ---- 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmul is on; the plain version must run in float32")
+    dev = torch.device("cuda")
+    # ---- 2. build
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")
+    print_ptxas_report(_build)
+
+    rows = [fm_receiver_phases(dev, card)]
+    rows += band_monitor_phases(dev, card)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,10 +37,13 @@
 // byte split of the taps, or wgmma) are later work.
 //
 // Built without --use_fast_math: the conversion's division and atan2's
-// r = num / (den + 1e-30f) are IEEE-rounded, denormals are kept.
+// r = num / (den + 1e-30f) are IEEE-rounded, denormals are kept.  atan2_poly
+// is shared with band_monitor.cu (atan2_poly.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "atan2_poly.cuh"
 
 namespace {
 
@@ -65,32 +68,6 @@ struct Taps {
 
 __device__ __forceinline__ float convert(float raw) {
   return (raw - 127.5f) / 127.5f;
-}
-
-// Octant-reduced odd polynomial, the coefficients and branches of
-// comms_tpu/kernels/fm_chain_pallas.py::_atan2.  The sign-bit tests keep
-// atan2(+-0, -0) = +-pi.
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x);
-  const float ay = fabsf(y);
-  const bool swap = ay > ax;
-  const float num = fminf(ax, ay);
-  const float den = fmaxf(ax, ay);
-  const float r = num / (den + 1e-30f);
-  const float r2 = r * r;
-  float p = -4.831168387e-03f;
-  p = p * r2 + 2.475678069e-02f;
-  p = p * r2 + -6.021912799e-02f;
-  p = p * r2 + 9.967923619e-02f;
-  p = p * r2 + -1.404013889e-01f;
-  p = p * r2 + 1.997368136e-01f;
-  p = p * r2 + -3.333230283e-01f;
-  p = p * r2 + 9.999999582e-01f;
-  float a = p * r;
-  if (swap) a = 1.57079632679489661923f - a;
-  if (__float_as_int(x) < 0) a = 3.14159265358979323846f - a;
-  if (__float_as_int(y) < 0) a = -a;
-  return a;
 }
 
 __global__ void __launch_bounds__(kThreads)

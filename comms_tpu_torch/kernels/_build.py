@@ -1,12 +1,18 @@
 """Build the package's CUDA sources into one shared library at first use.
 
 ``nvcc`` compiles every ``comms_tpu_torch/csrc/*.cu`` for ``sm_90a``
-(Hopper) into ``build/comms_tpu_torch/`` at the repository root (a
-directory git ignores).  The library's file name carries a hash of the
-sources and the compiler flags, so a changed source builds anew and an
-unchanged one is loaded as it is; modification times are never read.
-The library has a plain C interface and is loaded with ``ctypes``: no
-PyTorch header is compiled, which keeps a build to seconds.
+(Hopper), one process per source, all started together, then links the
+objects into one library in ``build/comms_tpu_torch/`` at the repository
+root (a directory git ignores).  The library's file name carries a hash
+of the sources, the headers and the compiler flags, so a changed source
+builds anew and an unchanged one is loaded as it is; modification times
+are never read.  The library has a plain C interface and is loaded with
+``ctypes``: no PyTorch header is compiled, which keeps a build to
+seconds.  ``ptxas``'s report (registers, shared memory, spills per
+kernel) is kept beside the library as ``<library>.log``.
+
+:func:`device_constant` keeps the kernels' coefficient tables on the
+card, copied once per content and device.
 
 ``--use_fast_math`` is deliberately absent: it flushes denormals and
 approximates division, and the FM kernel's atan2 depends on both.
@@ -15,6 +21,7 @@ approximates division, and the FM kernel's atan2 depends on both.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,13 +30,17 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load", "nvcc_path", "BUILD_DIR", "CSRC_DIR"]
+import numpy as np
+import torch
+
+__all__ = ["load", "library_path", "nvcc_path", "device_constant",
+           "BUILD_DIR", "CSRC_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "comms_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -69,29 +80,40 @@ def _source_hash(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands in parallel; raises with the first failure's
+    stderr.  Returns each command's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return [err for _, err in outs]
+
+
 def _compile(srcs, target: Path) -> None:
-    """nvcc into a temporary file beside ``target``, then an atomic
-    rename, so that concurrent builds never load a half-written
-    library.  Raises with nvcc's stderr on failure."""
+    """One nvcc per source into objects, then one link, into a
+    temporary file beside ``target`` and an atomic rename, so that
+    concurrent builds never load a half-written library."""
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in srcs]
+        logs = _run([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+                     for p, o in zip(srcs, objs)])
+        lib = str(Path(tmp) / "lib.so")
+        _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", lib, *objs]])
+        Path(f"{target}.log").write_text("".join(logs))
+        os.replace(lib, target)
 
 
 def _bind(lib) -> None:
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.fm_chain_launch.restype = ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.fm_chain_launch.restype = i32
     lib.fm_chain_launch.argtypes = [
         ptr, ptr,            # re, im u8 planes
         ptr, ptr, ptr, ptr,  # ctx xre, xim, d, prev (f32, device)
@@ -100,6 +122,37 @@ def _bind(lib) -> None:
         i64,                 # audio samples
         ptr,                 # cudaStream_t
     ]
+    lib.channelize_launch.restype = i32
+    lib.channelize_launch.argtypes = [
+        ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, ctx length
+        ptr, ptr, i32, i32,        # C, roots, K, M
+        i64, ptr, ptr,             # frames, yr, yi
+        ptr,                       # cudaStream_t
+    ]
+    lib.decim_fir_smem_bytes.restype = i64
+    lib.decim_fir_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.decim_fir_launch.restype = i32
+    lib.decim_fir_launch.argtypes = [
+        ptr, ptr, ptr, ptr, i32,   # xr, xi, ctx r, ctx i, ctx length
+        ptr, ptr, i32, i32, i32,   # taps r, taps i, MD, D, complex taps
+        i64, i32, i32,             # samples per row, rows, outputs/block
+        ptr, ptr, ptr,             # yr, yi, cudaStream_t
+    ]
+    lib.band_monitor_launch.restype = i32
+    lib.band_monitor_launch.argtypes = [
+        ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, ctx length
+        ptr, ptr, i32,             # halo re, halo im, halo frames
+        ptr, ptr, i32, i32,        # C, roots, K, M
+        ptr, i32, i32, i64,        # audio taps, their count, dec, frames
+        ptr, ptr, ptr, ptr, ptr,   # audio, halo out re/im, ctx out re/im
+        ptr,                       # cudaStream_t
+    ]
+
+
+def library_path() -> Path:
+    """Where the library of the current sources is (or will be) built."""
+    srcs = _sources()
+    return BUILD_DIR / f"libcomms_tpu_torch_{_source_hash(srcs)}.so"
 
 
 def load():
@@ -109,10 +162,23 @@ def load():
         if _lib is not None:
             return _lib
         srcs = _sources()
-        target = BUILD_DIR / f"libcomms_tpu_torch_{_source_hash(srcs)}.so"
+        target = library_path()
         if not target.exists():
             _compile(srcs, target)
         lib = ctypes.CDLL(str(target))
         _bind(lib)
         _lib = lib
         return lib
+
+
+def device_constant(arr: np.ndarray, device) -> torch.Tensor:
+    """``arr`` as a float32 tensor on ``device``, copied once per
+    content and device (the taps and tables the kernels read)."""
+    a = np.ascontiguousarray(arr, dtype=np.float32)
+    return _cached_constant(a.tobytes(), a.shape, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_constant(raw: bytes, shape: tuple, device: str) -> torch.Tensor:
+    a = np.frombuffer(raw, dtype=np.float32).reshape(shape)
+    return torch.from_numpy(a.copy()).to(device)

@@ -34,6 +34,8 @@ __all__ = [
     "fir_block",
     "decimating_branch_taps",
     "fir_decimate_poly",
+    "piece_dots_accum",
+    "poly_mac_frames",
 ]
 
 # Output phases per GEMM row (the JAX package's MXU lane width; kept so
@@ -85,9 +87,10 @@ def _cached_band(raw: bytes, shape: tuple, np_dtype: str, phases: int,
 
 
 def _window_rows_strided(xpad, rows: int, stride: int, width: int):
-    """W[r, i] = xpad[r*stride + i] for i < width: a strided view.
-    Requires len(xpad) >= (rows - 1)*stride + width."""
-    return xpad.unfold(0, width, stride)[:rows]
+    """W[..., r, i] = xpad[..., r*stride + i] for i < width: a strided
+    view over the last axis.  Requires xpad.shape[-1] >= (rows -
+    1)*stride + width."""
+    return xpad.unfold(-1, width, stride)[..., :rows, :]
 
 
 def _window_rows(xext, rows: int, phases: int, taps_len: int):
@@ -96,11 +99,12 @@ def _window_rows(xext, rows: int, phases: int, taps_len: int):
 
 
 def _pad_tail(x, length: int):
-    """Zero-extend ``x`` to at least ``length`` samples."""
-    pad = length - x.shape[0]
+    """Zero-extend ``x`` along its last axis to at least ``length``
+    samples."""
+    pad = length - x.shape[-1]
     if pad <= 0:
         return x
-    return torch.cat([x, x.new_zeros(pad)])
+    return torch.cat([x, x.new_zeros(*x.shape[:-1], pad)], dim=-1)
 
 
 def _banded_product(xpad, B, windows):
@@ -195,10 +199,13 @@ def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES):
     of M*D - 1 samples.  len(x) % D == 0.  Returns ``(y[N//D],
     new_ctx)``.  Identical to ``fir_block`` + ``[::D]`` when the block
     length divides D (both keep index 0).
+
+    Leading axes of ``x`` and ``ctx`` are batch axes (one independent
+    stream per row, as the JAX package's ``vmap`` over channels).
     """
     C = np.asarray(Hb)
     M, D = C.shape
-    N = x.shape[0]
+    N = x.shape[-1]
     if N % D:
         raise ValueError(f"block {N} not a multiple of rate {D}")
     frames = N // D
@@ -207,8 +214,8 @@ def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES):
     B2 = _band_on(C, P, True, x.device)
     width = (P - 1) * D + T_pad
 
-    xe = torch.cat([ctx.to(x.dtype), x])               # [T_pad - 1 + N]
-    new_ctx = xe[-(T_pad - 1):] if T_pad > 1 else ctx
+    xe = torch.cat([ctx.to(x.dtype), x], dim=-1)       # [T_pad - 1 + N]
+    new_ctx = xe[..., -(T_pad - 1):] if T_pad > 1 else ctx
     y = _decimate_gemm_core(xe, B2, D, P, frames, width)
     return y, new_ctx
 
@@ -222,4 +229,52 @@ def _decimate_gemm_core(xe, B2, D: int, P: int, frames: int, width: int):
     xpad = _pad_tail(xe, (R - 1) * stride + width)
     Y = _banded_product(
         xpad, B2, lambda v: _window_rows_strided(v, R, stride, width))
-    return Y.reshape(R * P)[:frames]
+    return Y.reshape(*Y.shape[:-2], R * P)[..., :frames]
+
+
+def piece_dots_accum(xpad, Bs, R: int, stride: int, width: int):
+    """Banded-GEMM core on pieces: row r of the window is
+    ``xpad[r*stride : r*stride + width]``, cut into ``stride``-wide
+    pieces, each a reshape of a slice of ``xpad`` (no gather), and each
+    piece multiplies its rows of every band matrix in ``Bs``.  Returns
+    one [R, P] accumulator per matrix.  Requires ``len(xpad) >=
+    stride*((width-1)//stride) + R*stride``.  Counterpart of the JAX
+    package's ``piece_dots_accum``; the channelizer's branch GEMM runs
+    on it."""
+    Ys = [None] * len(Bs)
+    off = 0
+    while off < width:
+        w = min(stride, width - off)
+        Wp = xpad[off:off + R * stride].reshape(R, stride)[:, :w]
+        for i, B in enumerate(Bs):
+            t = Wp @ B[off:off + w].to(xpad.dtype)
+            Ys[i] = t if Ys[i] is None else Ys[i] + t
+        off += w
+    return Ys
+
+
+def poly_mac_frames(x, C, ctx):
+    """Polyphase MAC core: the per-column accumulator
+    ``V[frames, D] = sum_k C[k-1, :] * G[m + M - k, :]`` with
+    ``G[i, c] = xe[i*D + c]`` and ``xe`` the carried tail followed by
+    ``x`` (the decimating FIR sums it over columns; the channelizer
+    FFTs it).  ``C`` is the host [M, D] matrix of
+    :func:`decimating_branch_taps`.  Returns ``(V, new_ctx)``."""
+    C = np.asarray(C)
+    M, D = C.shape
+    N = x.shape[0]
+    if N % D:
+        raise ValueError(f"block {N} not a multiple of rate {D}")
+    frames = N // D
+    T_pad = M * D
+    Ct = torch.from_numpy(np.ascontiguousarray(C)).to(x.device)
+    xe = torch.cat([ctx.to(x.dtype), x])               # [T_pad - 1 + N]
+    new_ctx = xe[-(T_pad - 1):] if T_pad > 1 else ctx
+    R = frames + M - 1
+    G = xe[:R * D].reshape(R, D)
+    acc = torch.zeros((frames, D), dtype=torch.promote_types(x.dtype,
+                                                             Ct.dtype),
+                      device=x.device)
+    for k in range(1, M + 1):
+        acc = acc + Ct[k - 1][None, :] * G[M - k:M - k + frames]
+    return acc, new_ctx

@@ -36,6 +36,14 @@ class ThroughputMeter:
         self.samples += int(num_samples)
         self.blocks += 1
 
+    @contextlib.contextmanager
+    def wait(self):
+        """Time spent finishing blocks already counted (a stream's final
+        drain): seconds, no samples."""
+        t0 = time.perf_counter()
+        yield
+        self.seconds += time.perf_counter() - t0
+
     @property
     def msps(self) -> float:
         return self.samples / self.seconds / 1e6 if self.seconds else 0.0

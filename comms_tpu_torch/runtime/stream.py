@@ -137,6 +137,10 @@ class StreamRunner:
                 if len(pending) > self.depth:
                     self._drain(*pending.popleft())
                 self.blocks_done += 1
-        while pending:
-            self._drain(*pending.popleft())
+        # The blocks still in flight are part of the measured stream: a
+        # meter that stopped at the last dispatch would count their
+        # samples without their time.
+        with self.meter.wait():
+            while pending:
+                self._drain(*pending.popleft())
         return self.meter

@@ -4,6 +4,7 @@ order at any depth, and the package imports neither jax nor comms_tpu."""
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +90,18 @@ def test_stream_runner_fused_step_with_tuple_blocks():
         assert np.max(np.abs(g - w)) < 1e-3
 
 
+def test_stream_runner_meter_covers_the_final_drain():
+    # With depth 4 and 6 blocks, 4 blocks reach the sink only in the
+    # final drain; the meter's seconds must include their time.
+    delay = 0.02
+    runner = StreamRunner(lambda s, x: (x, s), None,
+                          (np.zeros(10, np.float32) for _ in range(6)),
+                          sink=lambda y: time.sleep(delay), depth=4)
+    meter = runner.run()
+    assert meter.blocks == 6 and meter.samples == 60
+    assert meter.seconds >= 6 * delay
+
+
 def test_device_sync_checksum():
     t = (torch.tensor([1.5, 2.0]), {"a": torch.tensor([2.0 + 1j])})
     assert device_sync(t) == 3.5
@@ -113,7 +126,10 @@ def test_package_imports_no_jax():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.split())
-    for name in ("ops.fir", "ops.demodulation", "kernels._build",
-                 "kernels.fm_chain", "models.fm_receiver", "runtime.metrics",
+    for name in ("ops.fir", "ops.demodulation", "ops.channelizer",
+                 "kernels._build", "kernels.fm_chain", "kernels.channelizer",
+                 "kernels.decim_fir", "kernels.band_monitor",
+                 "models.fm_receiver", "models.channelizer",
+                 "models.fm_band_monitor", "runtime.metrics",
                  "runtime.stream"):
         assert "comms_tpu_torch." + name in imported
