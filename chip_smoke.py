@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the FM broadcast
-receiver and the wideband FM band monitor.
+receiver, the wideband FM band monitor and the QPSK receiver.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -34,12 +34,32 @@ Phases (each raises on failure, so any failure exits non-zero):
    staged, each channel's tone against its spectrum, and exact launch
    counts per kernel;
 7. kernel and plain-version times at the main paths' shapes (CUDA
-   events), each beside the card's name and power limit.
+   events), each beside the card's name and power limit;
+8. QPSK: a synthetic capture of 33,554,432 samples (2^25, bench.py's
+   capture), the FIR kernel (the matched filter's 32 real taps, and 257
+   complex taps from a mid-stream context), the symbol kernel's three
+   entries with panels at halfwidth 51 (zero and carried context) and
+   the panel reductions against their plain versions; panels repeat bit
+   for bit; the kernel route against the tensor route at one
+   IN_PER_STEP block;
+9. QPSK main paths: the one-shot receiver (fused core: the symbol
+   kernel's panel and ``_scalars`` entries) and the staged core (the FIR
+   kernel) on the capture, zero bit errors over the whole capture, the
+   capture's timing estimate rebuilt from the panel reductions;
+   ``StreamRunner`` over the fused stream step, 8 gap-free blocks of
+   33,554,432 after 3 warm-up blocks, depth 4, state chained, from
+   device-resident and from pinned host blocks, zero bit errors after the
+   warm-up block with one lag across the seams; the fast step on the
+   same blocks; two blocks under ``torch.cuda.set_sync_debug_mode
+   ("error")``; exact launch counts;
+10. QPSK kernel and plain-version times, and a ``torch.profiler`` split
+   of one served block.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
-FM receiver, torch on the card for the band monitor).  The line before
-the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+FM receiver, torch on the card for the band monitor, numpy bits and
+torch on the card for the QPSK capture).  The line before the last is
+the kernel table as JSON; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -87,6 +107,28 @@ POLY_N = 409 * 64 * POLY_DEC * 128   # 16,752,640: the poly entry's quantum
 TOL_CHAN = 1e-5
 TOL_FIR = 5e-5
 TOL_BM = 2e-4
+
+
+# QPSK receiver (bench.py:414-485): one 2^25-sample capture of the
+# qpsk_tx waveform (RRC sps 4, 32 taps, beta 0.25) with the impairments
+# of tests/test_qpsk_rx.py:52-62.  The capture repeats a 2^22-sample
+# period (circular pulse shaping and delay), so any run of blocks of a
+# multiple of the period is one gap-free stream.
+QPSK_N = 33_554_432
+QPSK_PERIOD = 4_194_304
+QPSK_CFO, QPSK_PHASE, QPSK_DELAY, QPSK_NOISE = 0.01, 0.6, 2.3, 0.02
+QPSK_MARGIN = 16        # symbols skipped at a one-shot block's edges
+# Kernel vs plain: float32 on both sides in other summation orders, the
+# same de-rotation angle decomposition (symbols, relative to the largest
+# symbol); panels relative to the largest panel entry; the kernel route
+# vs the tensor route (another angle decomposition) at the JAX test's
+# 1e-3 (tests/test_qpsk_rx.py:170-178).
+TOL_SYM = 1e-4
+TOL_PANEL = 1e-5
+TOL_ROUTE = 1e-3
+TOL_REDUCE = 1e-4
+TOL_STREAM_SYM = 2e-3   # fast vs fused stream step (the JAX test's)
+TOL_STREAM_STATE = 1e-3
 
 
 def fail(msg: str):
@@ -315,6 +357,30 @@ def print_ptxas_report(build) -> None:
                                            text))
     print(f"ptxas: {len(regs)} kernel functions, {min(regs)}-{max(regs)} "
           f"registers per thread, {spill} bytes of spill stores")
+
+
+def print_ptxas_kernels(build, names) -> None:
+    """ptxas's registers, shared memory and spills of the kernels named
+    in ``names`` (matched as the mangled name's length-prefixed part, so
+    ``fir_kernel`` does not match ``decim_fir_kernel``)."""
+    import re
+
+    log = Path(f"{build.library_path()}.log")
+    if not log.exists():
+        return
+    mangled = {f"{len(n)}{n}": n for n in names}
+    current = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1)
+        elif current and "Used" in line and any(k in current
+                                                for k in mangled):
+            short = next(n for k, n in mangled.items() if k in current)
+            tmpl = "<true>" if "ILb1E" in current else (
+                "<false>" if "ILb0E" in current else "")
+            print(f"ptxas {short}{tmpl}: {line.split(':', 1)[1].strip()}")
+            current = None
 
 
 def station_capture(n: int, k: int, seed: int, dev):
@@ -656,6 +722,493 @@ def band_monitor_phases(dev, card: str) -> list:
             for name, f, rep, n, err in table]
 
 
+def qpsk_capture(dev, seed: int):
+    """The QPSK capture: float32 planes [QPSK_N] on the card and the bits
+    of one period (numpy uint8 [QPSK_PERIOD / 2]).  Random bits (numpy),
+    the consecutive-bit-pair map, qpsk_tx's RRC pulse (sps 4, 32 taps,
+    beta 0.25, not normalised: 1.41 rms, the level the JAX tests add
+    their noise to) and a delay of QPSK_DELAY samples applied to one
+    period circularly (float64 FFTs, no cuDNN), the period repeated, the
+    carrier offset with its global phase, complex Gaussian noise."""
+    import torch
+
+    from comms_tpu_torch.ops import taps as ttaps
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    L = QPSK_PERIOD
+    bits = np.random.default_rng(seed).integers(0, 2, size=L // 2,
+                                                dtype=np.uint8)
+    b = torch.from_numpy(bits.astype(np.float64)).to(dev)
+    up = torch.zeros(L, dtype=torch.complex128, device=dev)
+    up[::4] = torch.complex(2.0 * b[0::2] - 1.0, 2.0 * b[1::2] - 1.0)
+    h = np.real(ttaps.rrc_taps(32, 4.0, 0.25))
+    hp = torch.zeros(L, **f64)
+    hp[:32] = torch.from_numpy(h)
+    k = torch.fft.fftfreq(L, **f64)
+    base = torch.fft.ifft(torch.fft.fft(up) * torch.fft.fft(hp)
+                          * torch.exp(-2j * np.pi * QPSK_DELAY * k))
+    n = torch.arange(QPSK_N, **f64)
+    x = base.repeat(QPSK_N // L) * torch.exp(1j * (QPSK_CFO * n
+                                                   + QPSK_PHASE))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    noise = QPSK_NOISE * torch.randn(2, QPSK_N, generator=g, **f64)
+    return ((x.real + noise[0]).float().contiguous(),
+            (x.imag + noise[1]).float().contiguous(), bits)
+
+
+def qpsk_bit_errors(sym, first: int, bits, rot: int, lag: int):
+    """Bit errors of symbol planes ``sym`` [2, M] (on the card), whose
+    symbol 0 is stream symbol ``first``, against the periodic reference
+    bits: stream symbol g decides transmitted symbol g - lag after a
+    rotation by j^rot."""
+    import torch
+
+    re, im = sym[0], sym[1]
+    for _ in range(rot % 4):
+        re, im = -im, re
+    ref = torch.from_numpy(bits.reshape(-1, 2).astype(bool)).to(sym.device)
+    idx = (torch.arange(sym.shape[1], device=sym.device) + first - lag) % (
+        ref.shape[0])
+    want = ref[idx]
+    return int(((re > 0) != want[:, 0]).sum() + ((im > 0) != want[:, 1])
+               .sum())
+
+
+def qpsk_align(sym, first: int, bits):
+    """``(rot, lag)`` of the best of the 4 rotations x symbol lags in
+    [0, 16] on 1500 symbols from ``sym`` [2, M] (stream symbol ``first``
+    at index 0), and its errors there."""
+    from comms_tpu_torch.models import qpsk_rx as trx
+
+    Ls = bits.shape[0] // 2
+    head = sym[:, :4096].cpu().numpy()
+    ref = bits.reshape(-1, 2)[(first + np.arange(4096)) % Ls].reshape(-1)
+    (rot, lag), errs, _ = trx.resolve_ambiguity(head, ref, search=1500)
+    return rot, lag, errs
+
+
+def qpsk_phases(dev, card: str) -> list:
+    """Phases 8-10; returns the kernel table rows of K4, K5's three
+    entries and K11."""
+    import torch
+
+    from comms_tpu_torch.kernels import fir as FK
+    from comms_tpu_torch.kernels import panel_reduce as PR
+    from comms_tpu_torch.kernels import qpsk_sym as QS
+    from comms_tpu_torch.models import qpsk_rx as trx
+    from comms_tpu_torch.models import qpsk_rx_stream as tstream
+    from comms_tpu_torch.ops import interp as tinterp
+    from comms_tpu_torch.runtime import StreamRunner
+
+    plain_calls = [0]
+
+    def counting(fn):
+        def wrapped(*a, **kw):
+            plain_calls[0] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    QS.qpsk_symbol_plain = counting(QS.qpsk_symbol_plain)
+    QS.qpsk_panels_plain = counting(QS.qpsk_panels_plain)
+    FK.fir_plain = counting(FK.fir_plain)
+    PR.panel_reductions_plain = counting(PR.panel_reductions_plain)
+
+    t0 = time.perf_counter()
+    re, im, bits = qpsk_capture(dev, seed=7)
+    torch.cuda.synchronize()
+    print(f"QPSK capture: {QPSK_N} samples (period {QPSK_PERIOD}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = trx.QpskRxConfig()
+    hw = cfg.panel_hw
+    errs = {}
+
+    def rel(a, b):
+        return max_err(a, b), rel_err(a, b)
+
+    # ---- 8a. the FIR kernel: the matched filter (zero context) and 257
+    # complex taps from a mid-stream context
+    cz_r, cz_i = FK.planar_ctx_zero(dev)
+    mid_r, mid_i = FK.planar_ctx_from_tail(im, re)
+    rng = np.random.default_rng(8)
+    taps257 = rng.normal(size=257) + 1j * rng.normal(size=257)
+    fir_cases = {"fir_mf_32": (cfg.mf_taps, cz_r, cz_i),
+                 "fir_257_complex": (taps257, mid_r.contiguous(),
+                                     mid_i.contiguous())}
+    for name, (h, cr, ci) in fir_cases.items():
+        yr, yi, _, _ = FK.fir_planar(re, im, h, cr, ci)
+        wr, wi = FK.fir_plain(re, im, h, cr, ci)
+        torch.cuda.synchronize()
+        g, w = torch.complex(yr, yi), torch.complex(wr, wi)
+        if g.shape != (QPSK_N,) or not torch.isfinite(g).all():
+            fail(f"{name}: shape {tuple(g.shape)} or non-finite values")
+        errs[name] = rel(g, w)
+        if errs[name][1] > TOL_FIR:
+            fail(f"{name}: {errs[name]} beyond {TOL_FIR}")
+
+    # ---- 8b. the symbol kernel's entries at full width
+    w_est = torch.tensor(0.0101, device=dev)
+    lag = torch.from_numpy(tinterp.lagrange_taps(0.3).astype(
+        np.float32)).to(dev)
+    shift2 = torch.tensor(-1, dtype=torch.int32, device=dev)
+    phase0 = 0.31
+    fr, fi = trx.modulated_taps(cfg, w_est, lag, shift2)
+    ws = w_est * 4
+    C = trx.fused_gemm_ctx_len(cfg)
+    ctx_mid = (im[-C:].clone(), re[-C:].clone())
+    panels_plain = QS.qpsk_panels_plain(re, im, hw)
+    pscale = max(float(p.abs().max()) for p in panels_plain[:4])
+
+    def panel_err(got):
+        return max(max_err(g, w) for g, w in zip(got[:4], panels_plain[:4]))
+
+    sym_plain = {}
+    for name, ctx in (("zero_ctx", None), ("mid_stream_ctx", ctx_mid)):
+        sr, si, pan = QS.qpsk_symbol_gemm(re, im, fr, fi, ws, phase0, ctx,
+                                          panels_hw=hw)
+        pr, pi = QS.qpsk_symbol_plain(re, im, fr, fi, ws, phase0, ctx)
+        torch.cuda.synchronize()
+        g, w = torch.complex(sr, si), torch.complex(pr, pi)
+        sym_plain[name] = w
+        if g.shape != (QPSK_N // 4,) or not torch.isfinite(g).all():
+            fail(f"symbol kernel {name}: shape or non-finite values")
+        errs[f"qpsk_symbol_gemm_{name}"] = rel(g, w)
+        errs[f"qpsk_symbol_gemm_panels_{name}"] = (panel_err(pan),
+                                                   panel_err(pan) / pscale)
+    kr, ki, kpan = QS.qpsk_symbol_gemm_scalars(
+        re, im, cfg.mf_taps, w_est, lag, shift2, phase0=phase0, ctx=ctx_mid,
+        panels_hw=hw)
+    torch.cuda.synchronize()
+    errs["qpsk_symbol_gemm_scalars"] = rel(torch.complex(kr, ki),
+                                           sym_plain["mid_stream_ctx"])
+    errs["qpsk_symbol_gemm_scalars_panels"] = (panel_err(kpan),
+                                               panel_err(kpan) / pscale)
+    qp = QS.qpsk_panels(re, im, hw)
+    again = QS.qpsk_panels(re, im, hw)
+    torch.cuda.synchronize()
+    errs["qpsk_panels"] = (panel_err(qp), panel_err(qp) / pscale)
+    if not all(torch.equal(a, b) for a, b in zip(qp[:4], again[:4])):
+        fail("the panels differ between two runs")
+    if not all(torch.equal(a, b) for a, b in zip(qp[:4], kpan[:4])):
+        fail("the panels of the panel entry and the _scalars entry differ")
+    for k, (_, e) in errs.items():
+        tol = TOL_PANEL if "panel" in k else (
+            TOL_SYM if k.startswith("qpsk") else TOL_FIR)
+        if not e <= tol:
+            fail(f"{k}: {e} beyond {tol}")
+    blk = QS.IN_PER_STEP
+    routes = [trx._fused_symbol_gemm(
+        trx.QpskRxConfig(use_kernel=uk), re[:blk], im[:blk], w_est, lag,
+        shift2, ctx=ctx_mid, phase0=phase0) for uk in (None, False)]
+    torch.cuda.synchronize()
+    e_route = rel_err(torch.complex(*routes[0]), torch.complex(*routes[1]))
+    if not e_route <= TOL_ROUTE:
+        fail(f"symbol kernel route vs tensor route: {e_route}")
+
+    # ---- 8c. the panel reductions on the capture's panels
+    p13 = torch.zeros((256, 256), device=dev)
+    p24 = torch.zeros((256, 256), device=dev)
+    width = qp[4]["width"]
+    p13[:128, :width], p13[128:, :width] = qp[0], qp[2]
+    p24[:128, :width], p24[128:, :width] = -qp[1], -qp[3]
+    red = PR.panel_reductions(p13, p24, hw)
+    red_plain = PR.panel_reductions_plain(p13, p24, hw)
+    torch.cuda.synchronize()
+    rows = [0, 1] + [8 + a for a in range(cfg.sps)]
+    V = 2 * hw + 1
+    errs["panel_reductions"] = rel(red[rows][:, :V], red_plain[rows][:, :V])
+    gr, gi = cfg.timing.lag_sums_r2(qp)
+    f_rot = float(torch.atan2(gi[hw - 1], gr[hw - 1]))
+    f_model = float(trx._estimates_from_panels(cfg, qp)[0])
+    print(f"panel reductions: row 2 {float(red[2, 0]):.7f} rad (plain "
+          f"{float(red_plain[2, 0]):.7f}, angle of the r2-rotated v=-1 lag "
+          f"sum {f_rot:.7f}; the receiver's f_est {f_model:.7f})")
+    if not errs["panel_reductions"][1] <= TOL_REDUCE:
+        fail(f"panel reductions: {errs['panel_reductions']}")
+    if max(abs(float(red[2, 0]) - float(red_plain[2, 0])),
+           abs(float(red[2, 0]) - f_rot)) > 1e-5:
+        fail("panel reductions: row 2 is not the rotated v=-1 angle")
+    print("QPSK kernels vs plain (max abs err, relative):", json.dumps(errs),
+          f"kernel route vs tensor route {e_route:.3g}")
+
+    # ---- 9a. the one-shot main paths: counts start at 0 here
+    FK.launches = PR.launches = 0
+    for k in QS.launches:
+        QS.launches[k] = 0
+    plain_calls[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sym, diag = trx.make_rx_fn_planar(cfg)(re, im)
+    torch.cuda.synchronize()
+    rx_s = time.perf_counter() - t0
+    M = QPSK_N // 4
+    rot, lag0, head_errs = qpsk_align(sym, 0, bits)
+    lo, hi = lag0 + QPSK_MARGIN, M - QPSK_MARGIN
+    ber = qpsk_bit_errors(sym[:, lo:hi], lo, bits, rot, lag0)
+    sym_s, diag_s = trx._rx_core_staged(cfg, re, im)
+    rot_s, lag_s, _ = qpsk_align(sym_s, 0, bits)
+    ber_s = qpsk_bit_errors(sym_s[:, lo:hi], lo, bits, rot_s, lag_s)
+    # the capture's timing estimate from the panel reductions' lag sums
+    red_main = PR.panel_reductions(p13, p24, hw)
+    t_k11 = cfg.timing.estimate_from_lag_sums(
+        red_main[0, :V], red_main[1, :V], weights=cfg.wq2,
+        lag_rot=diag["freq"])
+    one_shot = {k: float(v) for k, v in diag.items()}
+    staged = {k: float(v) for k, v in diag_s.items()}
+    print(f"one-shot receiver ({QPSK_N} samples, {rx_s:.3f} s incl. the "
+          f"first call's set-up): {json.dumps(one_shot)}; lag {lag0} rot "
+          f"{rot}; {ber} bit errors over {2 * (hi - lo)} bits")
+    print(f"staged core: {json.dumps(staged)}; {ber_s} bit errors; timing "
+          f"from the panel reductions {float(t_k11):.6f}")
+    if ber or ber_s or head_errs:
+        fail(f"bit errors: one-shot {ber}, staged {ber_s}")
+    if abs(one_shot["freq"] - QPSK_CFO) >= 0.01:
+        fail(f"frequency estimate {one_shot['freq']}")
+    if (one_shot["sym_phase"] != staged["sym_phase"]
+            or abs(one_shot["freq"] - staged["freq"]) >= 2e-3
+            or abs(one_shot["timing"] - staged["timing"]) >= 1e-2):
+        fail("fused and staged cores disagree")
+    if abs(float(t_k11) - one_shot["timing"]) > 1e-4:
+        fail(f"timing from the panel reductions {float(t_k11)}")
+    one_shot_counts = {"qpsk_panels": QS.launches["qpsk_panels"],
+                       "qpsk_symbol_gemm": QS.launches["qpsk_symbol_gemm"],
+                       "qpsk_symbol_gemm_scalars":
+                           QS.launches["qpsk_symbol_gemm_scalars"],
+                       "fir_planar": FK.launches,
+                       "panel_reductions": PR.launches,
+                       "plain": plain_calls[0]}
+    print("QPSK one-shot main path launches:", json.dumps(one_shot_counts))
+    want = {"qpsk_panels": 1, "qpsk_symbol_gemm": 1,
+            "qpsk_symbol_gemm_scalars": 1, "fir_planar": 1,
+            "panel_reductions": 1, "plain": 0}
+    if one_shot_counts != want:
+        fail(f"one-shot launches {one_shot_counts}, expected {want}")
+
+    # ---- 9b. serving: 8 gap-free blocks (block k is the capture turned by
+    # the carrier's phase advance over k blocks); counts start at 0 here
+    blocks = []
+    for b in range(SERVE_BLOCKS):
+        a = (QPSK_CFO * b * QPSK_N) % (2 * np.pi)
+        c, s_ = float(np.cos(a)), float(np.sin(a))
+        blocks.append(((re * c - im * s_).contiguous(),
+                       (re * s_ + im * c).contiguous()))
+    host_blocks = [(r.cpu().pin_memory(), i.cpu().pin_memory())
+                   for r, i in blocks]
+    step = tstream.make_stream_fused_fn(cfg)
+    FK.launches = PR.launches = 0
+    for k in QS.launches:
+        QS.launches[k] = 0
+    plain_calls[0] = 0
+
+    def serve(blks, n):
+        outs = []
+        torch.cuda.synchronize()
+        runner = StreamRunner(
+            lambda st, x: step(st, *x), tstream.init_state_fast(cfg, dev),
+            (blks[i] for i in range(n)), sink=outs.append,
+            samples_of=lambda x: x[0].shape[0], depth=SERVE_DEPTH,
+            device=dev)
+        return runner.run().msps, outs, runner.state
+
+    rates, served, states = {}, {}, {}
+    for name, blks in (("device", blocks), ("pinned_host", host_blocks)):
+        serve(blks, SERVE_WARMUP)
+        rates[name], served[name], states[name] = serve(blks, SERVE_BLOCKS)
+    torch.cuda.synchronize()
+    serve_counts = {"qpsk_symbol_gemm_scalars":
+                    QS.launches["qpsk_symbol_gemm_scalars"],
+                    "qpsk_symbol_gemm": QS.launches["qpsk_symbol_gemm"],
+                    "qpsk_panels": QS.launches["qpsk_panels"],
+                    "plain": plain_calls[0]}
+    print(f"QPSK serving Msps ({SERVE_BLOCKS} blocks of {QPSK_N}, depth "
+          f"{SERVE_DEPTH}, after {SERVE_WARMUP} warm-up blocks) on {card}:",
+          json.dumps(rates), "launches:", json.dumps(serve_counts))
+    n_served = 2 * (SERVE_WARMUP + SERVE_BLOCKS)
+    if serve_counts != {"qpsk_symbol_gemm_scalars": n_served,
+                        "qpsk_symbol_gemm": 0, "qpsk_panels": 0,
+                        "plain": 0}:
+        fail(f"serving launches {serve_counts}")
+    for a, b in zip(served["device"], served["pinned_host"]):
+        if not np.array_equal(a, b):
+            fail("serving from device and from pinned host blocks differ")
+    # block 0 of a run is the warm-up block; then one lag for all seams
+    stream_sym = torch.from_numpy(np.concatenate(served["device"][1:],
+                                                 axis=1)).to(dev)
+    rot_v, lag_v, _ = qpsk_align(stream_sym, M, bits)
+    ber_v = qpsk_bit_errors(stream_sym, M, bits, rot_v, lag_v)
+    print(f"served stream: lag {lag_v} rot {rot_v}; {ber_v} bit errors over "
+          f"{2 * stream_sym.shape[1]} bits (blocks 1-{SERVE_BLOCKS - 1})")
+    if ber_v:
+        fail(f"served stream: {ber_v} bit errors")
+    del stream_sym
+
+    fast = tstream.make_stream_fast_fn(cfg)
+    st_f = tstream.init_state_fast(cfg, dev)
+    e_fast = 0.0
+    for b, (r, i) in enumerate(blocks):
+        y, st_f = fast(st_f, r, i)
+        w = torch.from_numpy(served["device"][b]).to(dev)
+        e_fast = max(e_fast, rel_err(y, w))
+    # the state as the JAX test holds it: |a - b| <= tol + tol * |b|
+    e_state = max(float(((st_f[k].double() - states["device"][k].double())
+                         .abs() / (1.0 + states["device"][k].double()
+                                   .abs())).max()) for k in st_f)
+    print(f"fast vs fused stream step: symbols {e_fast:.3g} relative, state "
+          f"{e_state:.3g}")
+    if e_fast > TOL_STREAM_SYM or e_state > TOL_STREAM_STATE:
+        fail("fast and fused stream steps disagree")
+
+    st = states["device"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    for r, i in blocks[:2]:
+        y, st = step(st, r, i)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("fused stream step: 2 blocks under set_sync_debug_mode('error')")
+
+    # ---- 10. times at the main paths' shapes
+    cz = FK.planar_ctx_zero(dev)
+    timed = {
+        "fir_planar": (
+            lambda: FK.fir_planar(re, im, cfg.mf_taps, *cz),
+            lambda: FK.fir_plain(re, im, cfg.mf_taps, *cz),
+            "32 real taps"),
+        "qpsk_symbol_gemm": (
+            lambda: QS.qpsk_symbol_gemm(re, im, fr, fi, ws, phase0, ctx_mid,
+                                        panels_hw=hw),
+            lambda: (QS.qpsk_symbol_plain(re, im, fr, fi, ws, phase0,
+                                          ctx_mid),
+                     QS.qpsk_panels_plain(re, im, hw)),
+            f"traced taps, panels hw {hw}"),
+        "qpsk_symbol_gemm_scalars": (
+            lambda: QS.qpsk_symbol_gemm_scalars(
+                re, im, cfg.mf_taps, w_est, lag, shift2, phase0=phase0,
+                ctx=ctx_mid, panels_hw=hw),
+            lambda: (QS.qpsk_symbol_plain(
+                re, im, *trx.modulated_taps(cfg, w_est, lag, shift2), ws,
+                phase0, ctx_mid), QS.qpsk_panels_plain(re, im, hw)),
+            f"taps from the estimates, panels hw {hw} (the served call)"),
+        "qpsk_panels": (
+            lambda: QS.qpsk_panels(re, im, hw),
+            lambda: QS.qpsk_panels_plain(re, im, hw), f"hw {hw}"),
+        "panel_reductions": (
+            lambda: PR.panel_reductions(p13, p24, hw),
+            lambda: PR.panel_reductions_plain(p13, p24, hw),
+            f"[256, 256] x 2, hw {hw}"),
+    }
+    times = {}
+    for name, (kern, plain, what) in timed.items():
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain)
+        times[name] = (ms, plain_ms)
+        print(f"{name} at N={QPSK_N} ({what}) on {card}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+    sym_ms = cuda_ms(lambda: QS.qpsk_symbol_gemm(re, im, fr, fi, ws, phase0,
+                                                 ctx_mid))
+    sym_plain_ms = cuda_ms(lambda: QS.qpsk_symbol_plain(re, im, fr, fi, ws,
+                                                        phase0, ctx_mid))
+    print(f"qpsk_symbol_gemm symbols only at N={QPSK_N} on {card}: kernel "
+          f"{sym_ms:.4f} ms, plain {sym_plain_ms:.4f} ms")
+    qpsk_profile(step, st, blocks[2], card)
+
+    def worst(prefix):
+        return max(v[0] for k, v in errs.items() if k.startswith(prefix))
+
+    src = "comms_tpu_torch/csrc/"
+    launches = {k: one_shot_counts[k] + serve_counts.get(k, 0)
+                for k in ("fir_planar", "qpsk_symbol_gemm",
+                          "qpsk_symbol_gemm_scalars", "qpsk_panels",
+                          "panel_reductions")}
+    table = [
+        ("fir_planar", "fir.cu", "comms_tpu/kernels/fir_pallas.py:253",
+         worst("fir_")),
+        ("qpsk_symbol_gemm", "qpsk_sym.cu",
+         "comms_tpu/kernels/qpsk_sym_pallas.py:643",
+         worst("qpsk_symbol_gemm_")),
+        ("qpsk_symbol_gemm_scalars", "qpsk_sym.cu",
+         "comms_tpu/kernels/qpsk_sym_pallas.py:501",
+         worst("qpsk_symbol_gemm_scalars")),
+        ("qpsk_panels", "qpsk_sym.cu",
+         "comms_tpu/kernels/qpsk_sym_pallas.py:553", worst("qpsk_panels")),
+        ("panel_reductions", "panel_reduce.cu",
+         "comms_tpu/kernels/panel_reduce_pallas.py:125",
+         worst("panel_reductions")),
+    ]
+    return [{"name": name, "route": "cuda", "source": src + f,
+             "replaces": rep, "launches": launches[name],
+             "max_abs_err": err, "ms": times[name][0],
+             "plain_ms": times[name][1]}
+            for name, f, rep, err in table]
+
+
+def qpsk_profile(step, state, block, card: str) -> None:
+    """``torch.profiler`` over one served block.  Device time of the
+    symbol kernel (its three CUDA kernels, by name), and per stage of the
+    step (its ``qpsk_stream.*`` ranges as the trace's device-side marks
+    show them): the stage's device span and the kernel time inside it.
+    Then the device's busy and idle time between the block's first and
+    last kernel, and the host's time to enqueue the step (with and
+    without the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *block)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, *block)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e for e in on_dev if e.name.startswith("qpsk_stream.")]
+    kernels = [e for e in on_dev if not e.name.startswith("qpsk_stream.")
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        print(f"profile of one served block on {card}: the trace holds no "
+              f"device time (not measured)")
+        return
+
+    def busy_ms(lo, hi):
+        """Kernel time inside [lo, hi] (us), overlaps counted once."""
+        iv = sorted((max(k.time_range.start, lo), min(k.time_range.end, hi))
+                    for k in kernels
+                    if k.time_range.end > lo and k.time_range.start < hi)
+        total, end = 0.0, lo
+        for s, e in iv:
+            if e > end:
+                total += e - max(s, end)
+                end = e
+        return total / 1e3
+
+    lo = min(k.time_range.start for k in kernels)
+    hi = max(k.time_range.end for k in kernels)
+    busy = busy_ms(lo, hi)
+    k5 = sum(k.time_range.elapsed_us() for k in kernels
+             if "qpsk_sym_kernel" in k.name or "qpsk_panel_" in k.name) / 1e3
+    stages = {m.name: {"device_span_ms": m.time_range.elapsed_us() / 1e3,
+                       "kernel_ms": busy_ms(m.time_range.start,
+                                            m.time_range.end)}
+              for m in marks}
+    for e in prof.events():
+        if (e.name in stages
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            stages[e.name]["host_ms"] = e.cpu_time_total / 1e3
+    print(f"profile of one served block on {card}: {len(kernels)} device "
+          f"operations, busy {busy:.4f} ms of a {(hi - lo) / 1e3:.4f} ms "
+          f"span (idle {(hi - lo) / 1e3 - busy:.4f} ms); symbol kernel "
+          f"{k5:.4f} ms; host enqueue {host_ms:.4f} ms under the profiler, "
+          f"{float(np.median(enqueue)):.4f} ms without (median of 5); by "
+          f"stage: {json.dumps(stages)}")
+
+
 def main() -> None:
     import torch
 
@@ -685,9 +1238,14 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")
     print_ptxas_report(_build)
+    print_ptxas_kernels(_build, ("fir_kernel", "qpsk_sym_kernel",
+                                 "qpsk_panel_partial_kernel",
+                                 "qpsk_panel_reduce_kernel",
+                                 "panel_reduce_kernel"))
 
     rows = [fm_receiver_phases(dev, card)]
     rows += band_monitor_phases(dev, card)
+    rows += qpsk_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

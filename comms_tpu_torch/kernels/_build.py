@@ -11,8 +11,9 @@ are never read.  The library has a plain C interface and is loaded with
 seconds.  ``ptxas``'s report (registers, shared memory, spills per
 kernel) is kept beside the library as ``<library>.log``.
 
-:func:`device_constant` keeps the kernels' coefficient tables on the
-card, copied once per content and device.
+:func:`device_constant` and :func:`device_index` keep the kernels'
+coefficient tables and the estimate chains' index arrays on the card,
+copied once per content and device.
 
 ``--use_fast_math`` is deliberately absent: it flushes denormals and
 approximates division, and the FM kernel's atan2 depends on both.
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 __all__ = ["load", "library_path", "nvcc_path", "device_constant",
-           "BUILD_DIR", "CSRC_DIR"]
+           "device_index", "BUILD_DIR", "CSRC_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -147,6 +148,33 @@ def _bind(lib) -> None:
         ptr, ptr, ptr, ptr, ptr,   # audio, halo out re/im, ctx out re/im
         ptr,                       # cudaStream_t
     ]
+    lib.fir_smem_bytes.restype = i64
+    lib.fir_smem_bytes.argtypes = [i32, i32]
+    lib.fir_launch.restype = i32
+    lib.fir_launch.argtypes = [
+        ptr, ptr, ptr, ptr,        # xr, xi, ctx r, ctx i (1024 each)
+        ptr, ptr, i32, i32,        # taps r, taps i, T, complex taps
+        i64, ptr, ptr, ptr,        # samples, yr, yi, cudaStream_t
+    ]
+    lib.qpsk_sym_launch.restype = i32
+    lib.qpsk_sym_launch.argtypes = [
+        ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, MD
+        ptr, ptr, ptr,             # taps r, taps i, (ws, phase0)
+        ptr, ptr, ptr,             # mf rows, (w, lag, phase0), shift2
+        i64, ptr, ptr, ptr,        # samples, yr, yi, cudaStream_t
+    ]
+    lib.qpsk_panel_chunk_rows.restype = i32
+    lib.qpsk_panel_chunk_rows.argtypes = []
+    lib.qpsk_panels_launch.restype = i32
+    lib.qpsk_panels_launch.argtypes = [
+        ptr, ptr, i64, i32,        # re, im, samples, halfwidth
+        ptr, i32, ptr, ptr,        # partial sums, chunks, panels, stream
+    ]
+    lib.panel_reduce_launch.restype = i32
+    lib.panel_reduce_launch.argtypes = [
+        ptr, ptr, i32, i32,        # p13, p24, hw, sps
+        ptr, ptr,                  # out [16, 128], cudaStream_t
+    ]
 
 
 def library_path() -> Path:
@@ -171,14 +199,25 @@ def load():
         return lib
 
 
-def device_constant(arr: np.ndarray, device) -> torch.Tensor:
-    """``arr`` as a float32 tensor on ``device``, copied once per
-    content and device (the taps and tables the kernels read)."""
-    a = np.ascontiguousarray(arr, dtype=np.float32)
-    return _cached_constant(a.tobytes(), a.shape, str(torch.device(device)))
+def device_constant(arr: np.ndarray, device, dtype=np.float32) -> torch.Tensor:
+    """``arr`` as a ``dtype`` (float32 by default) tensor on ``device``,
+    copied once per content and device (the taps and tables the kernels
+    and the estimate chains read).  Callers must not write to it."""
+    a = np.ascontiguousarray(arr, dtype=dtype)
+    return _cached_constant(a.tobytes(), a.shape, a.dtype.str,
+                            str(torch.device(device)))
 
 
-@functools.lru_cache(maxsize=64)
-def _cached_constant(raw: bytes, shape: tuple, device: str) -> torch.Tensor:
-    a = np.frombuffer(raw, dtype=np.float32).reshape(shape)
+def device_index(arr: np.ndarray, device) -> torch.Tensor:
+    """Host index array ``arr`` as an int64 tensor on ``device``, copied
+    once per content and device, for gathers whose indices are known on
+    the host: reusing it keeps a block step free of host-to-device
+    copies."""
+    return device_constant(arr, device, np.int64)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_constant(raw: bytes, shape: tuple, np_dtype: str,
+                     device: str) -> torch.Tensor:
+    a = np.frombuffer(raw, dtype=np_dtype).reshape(shape)
     return torch.from_numpy(a.copy()).to(device)

@@ -19,6 +19,12 @@ chopped into blocks.
 The host helpers (``banded_tap_matrix``, ``decimating_branch_taps``,
 ``_decimating_banded_matrix``) are numpy, computed once per tap set;
 their device copies are cached by content.
+
+The traced decimators (``fir_decimate_traced*``) take their taps as a
+device tensor that depends on estimates (the QPSK receiver's
+interpolator, timing shift and phase pick folded into one tap vector):
+the band matrix is one small gather of it against a host index array
+kept on the device, so nothing is read back to the host.
 """
 
 from __future__ import annotations
@@ -28,14 +34,20 @@ import functools
 import numpy as np
 import torch
 
+from comms_tpu_torch.kernels import _build
+
 __all__ = [
     "init_ctx",
     "banded_tap_matrix",
     "fir_block",
+    "fir_apply_planar",
     "decimating_branch_taps",
     "fir_decimate_poly",
     "piece_dots_accum",
     "poly_mac_frames",
+    "fir_decimate_traced",
+    "fir_decimate_traced_planar",
+    "fir_decimate_traced_planar_complex",
 ]
 
 # Output phases per GEMM row (the JAX package's MXU lane width; kept so
@@ -146,6 +158,32 @@ def fir_block(x, taps, ctx, phases: int = _DEFAULT_PHASES):
     Y = _banded_product(xpad, B,
                         lambda v: _window_rows(v, R, P, T))   # [R, P]
     return Y.reshape(R * P)[:N], new_ctx
+
+
+def fir_apply_planar(xr, xi, B, phases: int = _DEFAULT_PHASES):
+    """Real-tap FIR on re/im planes with zero initial context:
+    ``(yr, yi)`` out, no complex tensor made.  ``B`` is a real
+    :func:`banded_tap_matrix` (2-D numpy array or tensor)."""
+    if isinstance(B, torch.Tensor):
+        B = B.to(xr.device)
+    else:
+        B = _band_on(np.asarray(B), phases, False, xr.device)
+    P = B.shape[1]
+    T = B.shape[0] - P + 1
+    N = xr.shape[0]
+    Br = B.to(xr.dtype)
+    if T == 1:
+        return xr * Br[0, 0], xi * Br[0, 0]
+    R = -(-N // P)
+    width = T + P - 1
+    last_off = P * ((width - 1) // P)
+    pad_tail = max(last_off + R * P - (T - 1 + N), 0)
+    outs = []
+    for plane in (xr, xi):
+        xpad = torch.nn.functional.pad(plane, (T - 1, pad_tail))
+        Y = _window_rows(xpad, R, P, T) @ Br
+        outs.append(Y.reshape(R * P)[:N])
+    return outs[0], outs[1]
 
 
 def decimating_branch_taps(taps, rate: int) -> np.ndarray:
@@ -278,3 +316,102 @@ def poly_mac_frames(x, C, ctx):
     for k in range(1, M + 1):
         acc = acc + Ct[k - 1][None, :] * G[M - k:M - k + frames]
     return acc, new_ctx
+
+
+def _traced_band_setup(flat_taps, N: int, rate: int, tail_zeros: int,
+                       phases: int):
+    """Validation and the band matrix of the traced-tap decimators:
+    B2[i, p] = flat[p*D + MD-1 - i] (0 outside the band), one gather of
+    ``flat_taps`` (with a zero appended) against a host index matrix
+    cached on the device."""
+    D, P = int(rate), int(phases)
+    MD = int(flat_taps.shape[0])
+    if MD % D:
+        raise ValueError(f"flat_taps length {MD} must be a multiple of "
+                         f"rate {D}")
+    Z = int(tail_zeros)
+    if (N + Z) % D:
+        raise ValueError(f"block {N} + tail_zeros {Z} not a multiple "
+                         f"of rate {D}")
+    frames = (N + Z) // D
+    width = (P - 1) * D + MD
+    i = np.arange(width)[:, None]
+    p = np.arange(P)[None, :]
+    t = p * D + MD - 1 - i
+    idx = _build.device_index(np.where((t >= 0) & (t < MD), t, MD),
+                              flat_taps.device)
+    flat_e = torch.cat([flat_taps, flat_taps.new_zeros(1)])
+    return torch.take(flat_e, idx), D, P, frames, width
+
+
+def fir_decimate_traced(x, flat_taps, rate: int, tail_zeros: int = 0,
+                        phases: int = _DEFAULT_PHASES):
+    """Polyphase decimating FIR whose taps are a device tensor:
+
+        y[m] = sum_t flat_taps[t] * x[m*D - t],  m in [0, (N+Z)//D)
+
+    with ``x`` zero-extended at both ends (the head where the taps reach
+    before sample 0; ``tail_zeros`` = Z extra zeros at the end so late
+    output frames exist)."""
+    B2, D, P, frames, width = _traced_band_setup(
+        flat_taps, int(x.shape[0]), rate, tail_zeros, phases)
+    MD = int(flat_taps.shape[0])
+    xe = torch.cat([x.new_zeros(MD - 1), x])
+    return _decimate_gemm_core(xe, B2, D, P, frames, width)
+
+
+def fir_decimate_traced_planar(xr, xi, flat_taps, rate: int,
+                               tail_zeros: int = 0,
+                               phases: int = _DEFAULT_PHASES):
+    """Planar twin of :func:`fir_decimate_traced` (real taps on re/im
+    planes): returns the ``(yr, yi)`` frame planes."""
+    (yr,), (yi,) = _dec_traced_planar_core(
+        xr, xi, (flat_taps,), rate, tail_zeros, phases)
+    return yr, yi
+
+
+def fir_decimate_traced_planar_complex(xr, xi, flat_re, flat_im,
+                                       rate: int, tail_zeros: int = 0,
+                                       phases: int = _DEFAULT_PHASES,
+                                       ctx=None):
+    """Complex taps on re/im planes:
+
+        y[m] = sum_t (flat_re + j*flat_im)[t] * (xr + j*xi)[m*D - t]
+
+    as four real decimating products sharing their window operands.
+    ``ctx``: optional carried ``(ctx_re, ctx_im)`` planes of MD-1
+    samples in place of the zero head (the streaming form: reads before
+    sample 0 see the previous block's tail).  Returns ``(yr, yi)``."""
+    (rr, ri), (ir_, ii) = _dec_traced_planar_core(
+        xr, xi, (flat_re, flat_im), rate, tail_zeros, phases, ctx=ctx)
+    return rr - ii, ri + ir_
+
+
+def _dec_traced_planar_core(xr, xi, flats, rate, tail_zeros, phases,
+                            ctx=None):
+    """For each plane and each tap vector in ``flats``, the decimating
+    product, the windows of a plane built once per piece.  Returns
+    ``tuple_per_plane(tuple_per_flat)``."""
+    N = int(xr.shape[0])
+    setups = [_traced_band_setup(f, N, rate, tail_zeros, phases)
+              for f in flats]
+    B2s = [s[0] for s in setups]
+    _, D, P, frames, width = setups[0]
+    MD = int(flats[0].shape[0])
+    R = -(-frames // P)
+    stride = P * D
+    last_off = stride * ((width - 1) // stride)
+    pad = max(last_off + R * stride - (MD - 1 + N), 0)
+    if ctx is not None and int(ctx[0].shape[0]) != MD - 1:
+        raise ValueError(f"ctx must be MD-1 = {MD - 1} samples, got "
+                         f"{ctx[0].shape[0]}")
+    outs = []
+    for pi, plane in enumerate((xr, xi)):
+        if ctx is None:
+            xpad = torch.nn.functional.pad(plane, (MD - 1, pad))
+        else:
+            xpad = torch.cat([ctx[pi].to(plane.dtype), plane,
+                              plane.new_zeros(pad)])
+        Ys = piece_dots_accum(xpad, B2s, R, stride, width)
+        outs.append(tuple(Y.reshape(R * P)[:frames] for Y in Ys))
+    return outs[0], outs[1]

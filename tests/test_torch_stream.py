@@ -127,9 +127,12 @@ def test_package_imports_no_jax():
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.split())
     for name in ("ops.fir", "ops.demodulation", "ops.channelizer",
+                 "ops.taps", "ops.mixer", "ops.interp",
                  "kernels._build", "kernels.fm_chain", "kernels.channelizer",
-                 "kernels.decim_fir", "kernels.band_monitor",
+                 "kernels.decim_fir", "kernels.band_monitor", "kernels.fir",
+                 "kernels.qpsk_sym", "kernels.panel_reduce",
                  "models.fm_receiver", "models.channelizer",
-                 "models.fm_band_monitor", "runtime.metrics",
+                 "models.fm_band_monitor", "models.qpsk_rx",
+                 "models.qpsk_rx_stream", "runtime.metrics",
                  "runtime.stream"):
         assert "comms_tpu_torch." + name in imported
