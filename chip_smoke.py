@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the FM broadcast
-receiver, the wideband FM band monitor and the QPSK receiver.
+receiver, the wideband FM band monitor, the QPSK receiver and FFT and
+Welch spectrum monitoring.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -34,7 +35,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    staged, each channel's tone against its spectrum, and exact launch
    counts per kernel;
 7. kernel and plain-version times at the main paths' shapes (CUDA
-   events), each beside the card's name and power limit;
+   events around calls queued behind a spin kernel, so they time the
+   device and not the wrapper's host code), each beside the card's name
+   and power limit;
 8. QPSK: a synthetic capture of 33,554,432 samples (2^25, bench.py's
    capture), the FIR kernel (the matched filter's 32 real taps, and 257
    complex taps from a mid-stream context), the symbol kernel's three
@@ -53,13 +56,34 @@ Phases (each raises on failure, so any failure exits non-zero):
    same blocks; two blocks under ``torch.cuda.set_sync_debug_mode
    ("error")``; exact launch counts;
 10. QPSK kernel and plain-version times, and a ``torch.profiler`` split
-   of one served block.
+   of one served block;
+11. spectrum kernels against their plain versions at full width, on a
+   white-noise capture: the FFT kernel at 16,777,216 samples as rows of
+   1024, 4096, 8192 and 16384 (scale 1/sqrt(n), against a float64 oracle
+   on a subset of rows, the plane-swap step twice an exact bin reversal)
+   and the 256-point spectrogram; the PSD kernel's stream entry (n =
+   1024) and its row entry through ``welch_psd``, each bin against that
+   bin; then three tones standing out of the noise of a tone capture;
+   the four-step kernel: ``welch_numerator`` at 2^20 x 32 in its three
+   ingest layouts, with means and with sparse demean, stage A, and
+   ``fft_large`` at 2^20 x 32 and 2^22 x 8;
+12. spectrum main path: ``welch_psd_planar`` served through
+   ``StreamRunner`` (8 blocks of 16,777,216 after 3 warm-up blocks, depth
+   4, device-resident and pinned host blocks), ``welch_psd``,
+   ``spectrogram``, the 2^20 x 32 wideband ``welch_psd`` and both
+   ``fft_large`` shapes; exact launch counts per kernel entry; a
+   ``torch.profiler`` split of one served block;
+13. spectrum kernel, plain-version and library (``torch.fft.fft``) times;
+14. every kernel table row carries its bound (bytes over 3.35 TB/s or
+   float32 operations over 67 TFLOP/s, from this run's shapes) and, where
+   one PyTorch call computes the same function (``F.conv1d`` for the FIR
+   entries, ``torch.fft.fft`` for the FFT entries), that call's time.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
-torch on the card for the QPSK capture).  The line before the last is
-the kernel table as JSON; the last line is ``{"ok": true, "device":
-{...}}``.
+torch on the card for the QPSK capture, torch on the card for the
+spectrum captures).  The line before the last is the kernel table as
+JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -130,9 +154,78 @@ TOL_REDUCE = 1e-4
 TOL_STREAM_SYM = 2e-3   # fast vs fused stream step (the JAX test's)
 TOL_STREAM_STATE = 1e-3
 
+# FFT and spectrum monitoring: the Welch serving block and FFT rows of
+# bench.py:796-940 (16,777,216 samples, 1024 bins), a capture with three
+# tones at known bins of a 1024-point FFT (amplitudes 1, 0.5, 0.25) plus
+# noise of sigma 0.01, and the wideband PSD of bench.py:628-670 (2^20
+# bins x 32 segments) with the 2^22 x 8 edge of the four-step stages.
+SP_N = 16_777_216
+SP_NFFT = 1024
+SP_TONES = (101, 300, 777)
+SP_NOISE = 0.01
+BIG = ((1 << 20, 32), (1 << 22, 8))
+# The JAX tests' bounds (FFT outputs 1e-5 against a float64 oracle, PSDs
+# 2e-5), the three K10 layouts 1e-5, the kernel and tensor Welch routes
+# and the spectrogram 1e-4, the involution 1e-4: relative to the largest
+# magnitude, except K7's PSDs and the Welch routes, which are held bin by
+# bin (each bin's error relative to that bin).
+TOL_FFT = 1e-5
+TOL_PSD = 2e-5
+TOL_LAYOUT = 1e-5
+TOL_WELCH = 1e-4
+TOL_INVOLUTION = 1e-4
+
+# The card's published rates (NVIDIA H100 SXM data sheet, at its 700 W
+# limit): a kernel's bound is the larger of its bytes over the memory
+# rate and its operations over the float32 rate of the CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def bound(nbytes: float, flops: float):
+    """``(bound_ms, bound_by)``: the least time the card could take to move
+    ``nbytes`` (each input read once, each output written once) and to do
+    ``flops`` float32 operations."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / F32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
+               nbytes, flops, library_ms=None) -> dict:
+    """One entry of the kernel table: the bound is computed from this run's
+    shapes (``nbytes``, ``flops``); every time was measured in this run."""
+    b_ms, by = bound(nbytes, flops)
+    print(f"bound of {name}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} "
+          f"GFLOP -> {b_ms:.4f} ms ({by}); kernel {ms:.4f} ms")
+    return {"name": name, "route": "cuda",
+            "source": "comms_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
+
+
+def conv1d_ms(rows, taps, stride: int, want=None):
+    """The library yardstick of a FIR with real taps: the time of one
+    ``F.conv1d`` call (cuDNN, TF32 off) over ``rows`` [C, L] (each row its
+    T-1 context samples, then the block) with the flipped taps, which
+    computes y[f] = sum_t taps[t] x[f*stride - t].  With ``want`` [C, M]
+    (the kernel's output) it also prints their difference."""
+    import torch
+    import torch.nn.functional as F
+
+    x = rows[:, None, :].contiguous()
+    w = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(taps, np.float32)[::-1])).to(x.device).view(1, 1, -1)
+    if want is not None:
+        y = F.conv1d(x, w, stride=stride)[:, 0]
+        print(f"conv1d (stride {stride}, {w.shape[-1]} taps) vs kernel: "
+              f"{rel_err(y, want):.3g} relative")
+    return cuda_ms(lambda: F.conv1d(x, w, stride=stride))
 
 
 def synth_capture(n: int, seed: int):
@@ -165,15 +258,38 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max().item())
 
 
+_SPIN_CYCLES_PER_MS = []
+
+
 def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+    """Device time of ``fn()`` in ms: CUDA events, median of ``reps``.
+    Each timed call is queued behind a spin kernel that lasts three times
+    the host's enqueue of ``fn`` plus 0.5 ms, so the events see the
+    device's work back to back and not the wrapper's host code."""
     import torch
 
+    if not _SPIN_CYCLES_PER_MS:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    host_ms = 0.0
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spin = int(_SPIN_CYCLES_PER_MS[0] * (3 * host_ms + 0.5))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -331,16 +447,15 @@ def fm_receiver_phases(dev, card: str) -> dict:
     print(f"fm_chain at N={BLOCK} on {card}: kernel {ms:.4f} ms "
           f"({BLOCK / ms / 1e6:.2f} Gsps), plain {plain_ms:.4f} ms")
 
-    return {
-        "name": "fm_chain_fused",
-        "route": "cuda",
-        "source": "comms_tpu_torch/csrc/fm_chain.cu",
-        "replaces": "comms_tpu/kernels/fm_chain_pallas.py:385",
-        "launches": main_launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }
+    # Bytes: the u8 planes in, the audio out.  Operations: stage 1 (63
+    # real taps on complex samples at the N/5 outputs it keeps), the demod
+    # (conjugate product and degree-15 atan2, ~46 flops) and stage 2.
+    nbytes = 2 * BLOCK + 4 * (BLOCK // 25)
+    flops = (BLOCK // 5) * (4 * 63 + 46) + (BLOCK // 25) * 2 * 63
+    return kernel_row("fm_chain_fused", "fm_chain.cu",
+                      "comms_tpu/kernels/fm_chain_pallas.py:385",
+                      main_launches, max_abs_err, ms, plain_ms, nbytes,
+                      flops)
 
 
 def print_ptxas_report(build) -> None:
@@ -377,8 +492,10 @@ def print_ptxas_kernels(build, names) -> None:
         elif current and "Used" in line and any(k in current
                                                 for k in mangled):
             short = next(n for k, n in mangled.items() if k in current)
+            ti = re.search(r"ILi(\d+)E", current)
             tmpl = "<true>" if "ILb1E" in current else (
-                "<false>" if "ILb0E" in current else "")
+                "<false>" if "ILb0E" in current else (
+                    f"<{ti.group(1)}>" if ti else ""))
             print(f"ptxas {short}{tmpl}: {line.split(':', 1)[1].strip()}")
             current = None
 
@@ -414,6 +531,12 @@ def station_capture(n: int, k: int, seed: int, dev):
 
 def rel_err(got, want) -> float:
     return max_err(got, want) / float(want.abs().max().item())
+
+
+def bin_err(got, want) -> float:
+    """The largest error of any element relative to that element of
+    ``want`` (a PSD's bins are all positive)."""
+    return float(((got - want).abs() / want.abs()).max().item())
 
 
 def tone_ratios(audio, tones, dec: int):
@@ -696,30 +819,60 @@ def band_monitor_phases(dev, card: str) -> list:
         print(f"{name} at {shape} on {card}: kernel {ms:.4f} ms "
               f"({n / ms / 1e6:.2f} Gsps), plain {plain_ms:.4f} ms")
 
+    # The library yardstick of the two FIR entries: F.conv1d with the
+    # stride of the decimation, on the same planes and contexts.
+    T = cfg.audio_taps.shape[0]
+    lib_dec = conv1d_ms(
+        torch.cat([torch.cat([fcr[:, -(T - 1):], dr], 1),
+                   torch.cat([fci[:, -(T - 1):], di], 1)]),
+        cfg.audio_taps, cfg.audio_dec,
+        want=torch.cat(DF.fir_decimate_planar(
+            dr, di, cfg.audio_taps, cfg.audio_dec, fcr, fci,
+            tile_rows=tile)[:2]))
+    h63 = poly_taps[63]
+    lib_poly = conv1d_ms(
+        torch.stack([torch.cat([pcr[-62:], pr]), torch.cat([pci[-62:], pi])]),
+        h63, POLY_DEC,
+        want=torch.stack(DF.poly_fir_planar(pr, pi, h63, pcr, pci,
+                                            POLY_DEC)[:2]))
+    print(f"library (F.conv1d) on {card}: fir_decimate {lib_dec:.4f} ms, "
+          f"poly_fir {lib_poly:.4f} ms")
+
     def worst(prefix):
         return max(v[0] for k, v in errs.items() if k.startswith(prefix))
 
-    src = "comms_tpu_torch/csrc/"
+    # Bytes and operations from the shapes (complex samples 8 bytes; real
+    # taps on complex samples 4 flops a tap; the filterbank's K-point DFT
+    # as an FFT, 5 K log2(K) flops per K samples; the demod ~46 flops a
+    # channel sample).
+    N, M16, M64 = BM_BLOCK, cfg.taps_per_branch, cfg64.taps_per_branch
+    dec = cfg.audio_dec
+    n_in = rows * n_ch
     table = [
         ("channelize", "channelizer.cu",
          "comms_tpu/kernels/channelizer_pallas.py:305",
-         main_counts["channelize"], worst("channelize_")),
+         main_counts["channelize"], worst("channelize_"),
+         16 * N, N * (4 * M64 + 5 * np.log2(BM_K64)), None),
         ("fir_decimate", "decim_fir.cu",
          "comms_tpu/kernels/decim_fir_pallas.py:262",
-         main_counts["fir_decimate"], worst("fir_decimate_")),
+         main_counts["fir_decimate"], worst("fir_decimate_"),
+         8 * n_in + 8 * n_in // dec, 4 * T * n_in // dec, lib_dec),
         # The poly-FIR entry launches the same kernel as fir_decimate;
         # its count is that kernel's.
         ("poly_fir", "decim_fir.cu",
          "comms_tpu/kernels/poly_fir_pallas.py:173",
-         main_counts["fir_decimate"], worst("poly_fir_")),
+         main_counts["fir_decimate"], worst("poly_fir_"),
+         8 * POLY_N + 8 * POLY_N // POLY_DEC, 4 * 63 * POLY_N // POLY_DEC,
+         lib_poly),
         ("band_monitor", "band_monitor.cu",
          "comms_tpu/kernels/band_monitor_pallas.py:349",
-         main_counts["band_monitor"], worst("band_monitor_")),
+         main_counts["band_monitor"], worst("band_monitor_"),
+         8 * N + 4 * N // dec,
+         N * (4 * M16 + 5 * np.log2(BM_K) + 46) + 2 * T * N // dec, None),
     ]
-    return [{"name": name, "route": "cuda", "source": src + f,
-             "replaces": rep, "launches": n, "max_abs_err": err,
-             "ms": times[name][0], "plain_ms": times[name][1]}
-            for name, f, rep, n, err in table]
+    return [kernel_row(name, f, rep, n, err, times[name][0],
+                       times[name][1], nbytes, flops, lib)
+            for name, f, rep, n, err, nbytes, flops, lib in table]
 
 
 def qpsk_capture(dev, seed: int):
@@ -1112,34 +1265,61 @@ def qpsk_phases(dev, card: str) -> list:
           f"{sym_ms:.4f} ms, plain {sym_plain_ms:.4f} ms")
     qpsk_profile(step, st, blocks[2], card)
 
+    T = cfg.mf_taps.shape[0]
+    lib_fir = conv1d_ms(
+        torch.nn.functional.pad(torch.stack([re, im]), (T - 1, 0)),
+        cfg.mf_taps, 1,
+        want=torch.stack(FK.fir_planar(re, im, cfg.mf_taps, *cz)[:2]))
+    print(f"library (F.conv1d) on {card}: fir_planar {lib_fir:.4f} ms")
+
     def worst(prefix):
         return max(v[0] for k, v in errs.items() if k.startswith(prefix))
 
-    src = "comms_tpu_torch/csrc/"
     launches = {k: one_shot_counts[k] + serve_counts.get(k, 0)
                 for k in ("fir_planar", "qpsk_symbol_gemm",
                           "qpsk_symbol_gemm_scalars", "qpsk_panels",
                           "panel_reductions")}
+    # Bytes and operations from the shapes: complex taps on complex
+    # samples 8 flops a tap at the N/4 symbols; the four panels 4w
+    # multiply-adds a sample (w = 128 + 2hw); the reductions' 12 flops per
+    # panel entry they read.
+    N, MD, w = QPSK_N, int(fr.shape[0]), 128 + 2 * hw
+    sym = (8 * N + 8 * N // 4, 2 * MD * N)
+    pan = (8 * N, 8 * w * N)
     table = [
         ("fir_planar", "fir.cu", "comms_tpu/kernels/fir_pallas.py:253",
-         worst("fir_")),
+         worst("fir_"), 16 * N, 4 * T * N, lib_fir),
         ("qpsk_symbol_gemm", "qpsk_sym.cu",
          "comms_tpu/kernels/qpsk_sym_pallas.py:643",
-         worst("qpsk_symbol_gemm_")),
+         worst("qpsk_symbol_gemm_"), sym[0], sym[1] + pan[1], None),
         ("qpsk_symbol_gemm_scalars", "qpsk_sym.cu",
          "comms_tpu/kernels/qpsk_sym_pallas.py:501",
-         worst("qpsk_symbol_gemm_scalars")),
+         worst("qpsk_symbol_gemm_scalars"), sym[0], sym[1] + pan[1], None),
         ("qpsk_panels", "qpsk_sym.cu",
-         "comms_tpu/kernels/qpsk_sym_pallas.py:553", worst("qpsk_panels")),
+         "comms_tpu/kernels/qpsk_sym_pallas.py:553", worst("qpsk_panels"),
+         pan[0], pan[1], None),
         ("panel_reductions", "panel_reduce.cu",
          "comms_tpu/kernels/panel_reduce_pallas.py:125",
-         worst("panel_reductions")),
+         worst("panel_reductions"), 2 * 256 * 256 * 4 + 16 * 128 * 4,
+         12 * (2 * hw + 1) * 128, None),
     ]
-    return [{"name": name, "route": "cuda", "source": src + f,
-             "replaces": rep, "launches": launches[name],
-             "max_abs_err": err, "ms": times[name][0],
-             "plain_ms": times[name][1]}
-            for name, f, rep, err in table]
+    return [kernel_row(name, f, rep, launches[name], err, times[name][0],
+                       times[name][1], nbytes, flops, lib)
+            for name, f, rep, err, nbytes, flops, lib in table]
+
+
+def busy_ms(ops, lo: float, hi: float) -> float:
+    """Time in ms inside [lo, hi] (us) that at least one of the profiler's
+    device events ``ops`` covers: overlaps counted once."""
+    iv = sorted((max(k.time_range.start, lo), min(k.time_range.end, hi))
+                for k in ops
+                if k.time_range.end > lo and k.time_range.start < hi)
+    total, end = 0.0, lo
+    for s, e in iv:
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
 
 
 def qpsk_profile(step, state, block, card: str) -> None:
@@ -1176,25 +1356,13 @@ def qpsk_profile(step, state, block, card: str) -> None:
               f"device time (not measured)")
         return
 
-    def busy_ms(lo, hi):
-        """Kernel time inside [lo, hi] (us), overlaps counted once."""
-        iv = sorted((max(k.time_range.start, lo), min(k.time_range.end, hi))
-                    for k in kernels
-                    if k.time_range.end > lo and k.time_range.start < hi)
-        total, end = 0.0, lo
-        for s, e in iv:
-            if e > end:
-                total += e - max(s, end)
-                end = e
-        return total / 1e3
-
     lo = min(k.time_range.start for k in kernels)
     hi = max(k.time_range.end for k in kernels)
-    busy = busy_ms(lo, hi)
+    busy = busy_ms(kernels, lo, hi)
     k5 = sum(k.time_range.elapsed_us() for k in kernels
              if "qpsk_sym_kernel" in k.name or "qpsk_panel_" in k.name) / 1e3
     stages = {m.name: {"device_span_ms": m.time_range.elapsed_us() / 1e3,
-                       "kernel_ms": busy_ms(m.time_range.start,
+                       "kernel_ms": busy_ms(kernels, m.time_range.start,
                                             m.time_range.end)}
               for m in marks}
     for e in prof.events():
@@ -1207,6 +1375,391 @@ def qpsk_profile(step, state, block, card: str) -> None:
           f"{k5:.4f} ms; host enqueue {host_ms:.4f} ms under the profiler, "
           f"{float(np.median(enqueue)):.4f} ms without (median of 5); by "
           f"stage: {json.dumps(stages)}")
+
+
+def tone_capture(n: int, seed: int, dev):
+    """complex64 [n] on the card: tones at the bins SP_TONES of an
+    SP_NFFT-point FFT (amplitudes 1, 0.5, 0.25; phases from integer
+    indices mod SP_NFFT, in float64) plus complex Gaussian noise of sigma
+    SP_NOISE per component."""
+    import torch
+
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    x = torch.zeros(n, dtype=torch.complex128, device=dev)
+    for k, a in zip(SP_TONES, (1.0, 0.5, 0.25)):
+        ph = (2 * np.pi / SP_NFFT) * torch.remainder(k * t, SP_NFFT)
+        x += a * torch.exp(1j * ph)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    noise = SP_NOISE * torch.randn(2, n, generator=g, dtype=torch.float64,
+                                   device=dev)
+    return (x + torch.complex(noise[0], noise[1])).to(torch.complex64)
+
+
+def profile_served(run, card: str, what: str) -> None:
+    """``torch.profiler`` over ``run()`` (a served block): the device's
+    busy time (kernels and copies, overlaps counted once) against the
+    wall time, and the device time by operation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    if not ops:
+        print(f"profile of {what} on {card}: no device time in the trace "
+              f"(not measured)")
+        return
+    busy = busy_ms(ops, min(e.time_range.start for e in ops),
+                   max(e.time_range.end for e in ops))
+    by = {}
+    for e in ops:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name[5:] if name.startswith("void ") else name
+        key = name.split("(")[0].split("<")[0].strip()[:40] or "(unnamed)"
+        by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    print(f"profile of {what} on {card}: {len(ops)} device operations, "
+          f"busy {busy:.4f} ms of {wall_us / 1e3:.4f} ms wall "
+          f"({1e5 * busy / wall_us:.1f}% busy); device ms by operation: "
+          f"{json.dumps({k: round(v, 4) for k, v in by.items()})}")
+
+
+def spectrum_phases(dev, card: str) -> list:
+    """Phases 11-14: FFT and Welch spectrum monitoring (K6, K7's two
+    entries, K10's three stages); returns their kernel table rows."""
+    import torch
+
+    from comms_tpu_torch.kernels import fft as SK
+    from comms_tpu_torch.kernels import fft_big as BK
+    from comms_tpu_torch.ops import fft as tfft
+    from comms_tpu_torch.ops import spectrum as tspec
+    from comms_tpu_torch.runtime import StreamRunner
+
+    t0 = time.perf_counter()
+    caps = [tone_capture(SP_N, 30 + b, dev) for b in range(3)]
+    torch.cuda.synchronize()
+    print(f"tone captures: 3 x {SP_N} samples in "
+          f"{time.perf_counter() - t0:.1f} s")
+    x0 = caps[0]
+    re, im = x0.real.contiguous(), x0.imag.contiguous()
+    # The kernels are held to their plain versions on white noise, where
+    # every bin carries comparable power: on the tone capture a tone bin
+    # outweighs a noise bin by ~1e6, so an error relative to the largest
+    # magnitude would not see the noise floor.  The tone capture is for
+    # the content check and the main path.
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    nr, ni = torch.randn(2, SP_N, generator=g, device=dev)
+    xn = torch.complex(nr, ni)
+    errs = {}
+
+    def check(key, err, tol):
+        errs[key] = err
+        if not err <= tol:
+            fail(f"{key}: {err} beyond {tol}")
+
+    def c128(r, i):
+        return torch.complex(r.double(), i.double())
+
+    # ---- 11a. K6 at 16,777,216 samples per size, scale 1/sqrt(n), against
+    # a float64 oracle on a subset of rows and against the plain version;
+    # the plane-swap step twice is an exact bin reversal
+    abs_err = {}
+    for n in (1024, 4096, 8192, 16384):
+        rows = SP_N // n
+        r2, i2 = nr.view(rows, n), ni.view(rows, n)
+        s = 1.0 / np.sqrt(n)
+        yr, yi = SK.fft_planar(r2, i2, n, scale=s)
+        pr, pi = SK.fft_plain(r2, i2, s)
+        idx = torch.tensor([0, 1, rows // 2, rows - 1], device=dev)
+        oracle = torch.fft.fft(c128(r2[idx], i2[idx]), dim=1) * s
+        y = torch.complex(yr, yi)
+        check(f"fft_{n}_vs_float64", rel_err(y[idx].to(oracle.dtype),
+                                             oracle), TOL_FFT)
+        check(f"fft_{n}_vs_plain", rel_err(y, torch.complex(pr, pi)),
+              TOL_FFT)
+        abs_err[n] = max_err(y, torch.complex(pr, pi))
+        ur, ui = SK.fft_planar(i2, r2, n, scale=s)
+        ur2, ui2 = SK.fft_planar(ur, ui, n, scale=s)
+        rev = torch.remainder(-torch.arange(n, device=dev), n)
+        check(f"fft_{n}_involution", rel_err(torch.complex(ui2, ur2),
+                                             torch.complex(r2, i2)[:, rev]),
+              TOL_INVOLUTION)
+        if not torch.isfinite(y).all():
+            fail(f"FFT n={n}: non-finite output")
+    del y, yr, yi, pr, pi, ur, ui, ur2, ui2
+    # the 256-point spectrogram of the noise, kernel against tensor route
+    S_k = tspec.spectrogram(xn, nperseg=256)
+    S_t = tspec.spectrogram(xn, nperseg=256, use_kernel=False)
+    if S_k.shape != (2 * SP_N // 256 - 1, 256):
+        fail(f"spectrogram shape {tuple(S_k.shape)}")
+    check("spectrogram_vs_tensor_route", rel_err(S_k, S_t), TOL_WELCH)
+    abs_err["spectrogram"] = max_err(S_k, S_t)
+    del S_k, S_t
+
+    # ---- 11b. K7: the stream entry at N = 16,777,216, n = 1024, and the
+    # segment-row entry through welch_psd, on the noise and per bin (each
+    # bin's error relative to that bin); then the tones stand out
+    w = tspec.hann(SP_NFFT)
+    acc = SK.psd_stream_planar(nr, ni, w, SP_NFFT)
+    want = SK.psd_stream_plain(nr, ni, w, SP_NFFT)
+    check("psd_stream_vs_plain", bin_err(acc, want), TOL_PSD)
+    check("psd_stream_vs_float64",
+          bin_err(acc.double(), SK.psd_stream_plain(nr.double(), ni.double(),
+                                                    w, SP_NFFT)), TOL_PSD)
+    abs_err["psd_stream"] = max_err(acc, want)
+    segs = (nr.unfold(0, SP_NFFT, SP_NFFT // 2),
+            ni.unfold(0, SP_NFFT, SP_NFFT // 2))
+    acc_rows = SK.psd_planar(*segs, w, SP_NFFT)
+    want = SK.psd_plain(*segs, w)
+    check("psd_rows_vs_plain", bin_err(acc_rows, want), TOL_PSD)
+    abs_err["psd_rows"] = max_err(acc_rows, want)
+    _, p_k = tspec.welch_psd(xn, nperseg=SP_NFFT)
+    _, p_t = tspec.welch_psd(xn, nperseg=SP_NFFT, use_kernel=False)
+    _, p_s = tspec.welch_psd_planar(nr, ni, nperseg=SP_NFFT)
+    check("welch_kernel_vs_tensor_route", bin_err(p_k, p_t), TOL_WELCH)
+    check("welch_planar_vs_welch", bin_err(p_s, p_k), TOL_WELCH)
+    del acc, acc_rows, want, p_t
+    _, p_k = tspec.welch_psd(x0, nperseg=SP_NFFT)
+    _, p_s = tspec.welch_psd_planar(re, im, nperseg=SP_NFFT)
+    med = float(p_s.median())
+    peaks = {}
+    for k in SP_TONES:
+        local = p_s[k - 8:k + 9]
+        peaks[k] = (int(local.argmax()) - 8, float(p_s[k]) / med)
+        if abs(peaks[k][0]) > 1 or peaks[k][1] <= 100:
+            fail(f"tone at bin {k}: peak offset {peaks[k][0]}, "
+                 f"{peaks[k][1]:.3g} x the median")
+    print("tones (peak offset from the bin, PSD over the median):",
+          json.dumps(peaks))
+
+    # ---- 11c. K10: the wideband PSD (welch_numerator at 2^20 x 32 in the
+    # three layouts, with means and with sparse demean), stage A, and
+    # fft_large at 2^20 x 32 and 2^22 x 8 (n1 = n2 = 2048)
+    big = {}
+    for F, B in BIG:
+        n1, n2 = BK.factorize(F)
+        g = torch.Generator(device=dev)
+        g.manual_seed(F + B)
+        xb = torch.randn(2, B, F, generator=g, device=dev) + 0.05
+        rb, ib = xb[0], xb[1]
+        wF = torch.from_numpy(tspec.hann(F).astype(np.float32)).to(dev)
+        means = torch.stack([rb.mean(1), ib.mean(1)], -1)
+        big[F] = (rb, ib, wF, means, n1, n2)
+        tag = f"{F}x{B}"
+        layouts = {
+            "flat": (rb, ib),
+            "3d": (rb.view(B, n1, n2), ib.view(B, n1, n2)),
+            "blocked": tuple(p.view(B, n1, n2 // 128, 128).permute(
+                0, 2, 1, 3).contiguous() for p in (rb, ib))}
+        nums = {k: BK.welch_numerator(r, i, wF) for k, (r, i) in
+                layouts.items()}
+        for k in ("3d", "blocked"):
+            check(f"welch_numerator_{tag}_{k}_vs_flat",
+                  rel_err(nums[k], nums["flat"]), TOL_LAYOUT)
+        want = BK.psd_big_plain(rb, ib, n1, n2, wF, means)
+        check(f"psd_big_{tag}_vs_plain", rel_err(nums["flat"], want),
+              TOL_PSD)
+        oracle = BK.psd_big_plain(rb.double(), ib.double(), n1, n2, wF,
+                                  means.double())
+        check(f"psd_big_{tag}_vs_float64",
+              rel_err(nums["flat"].double(), oracle), TOL_PSD)
+        abs_err[f"psd_big_{tag}"] = max_err(nums["flat"], want)
+        sp = BK.psd_big_planar(rb, ib, n1, n2, window=tspec.hann(F),
+                               sparse_demean=True)
+        check(f"psd_big_{tag}_sparse_vs_plain",
+              rel_err(sp, BK.psd_big_plain(rb, ib, n1, n2, tspec.hann(F),
+                                           sparse_demean=True)), TOL_PSD)
+        check(f"psd_big_{tag}_sparse_vs_means", rel_err(sp, nums["flat"]),
+              TOL_PSD)
+        dr, di, _ = BK.stage_a(rb, ib, n1, n2, wF, means)
+        d = torch.complex(dr, di)
+        d_plain = BK.stage_a_plain(rb, ib, n1, n2, wF, means)
+        check(f"stage_a_{tag}_vs_plain", rel_err(d, d_plain), TOL_FFT)
+        abs_err[f"stage_a_{tag}"] = max_err(d, d_plain)
+        del nums, layouts, dr, di, d, d_plain
+        y = tfft.fft_large(torch.complex(rb, ib))
+        idx = torch.tensor([0, B - 1], device=dev)
+        oracle = torch.fft.fft(c128(rb[idx], ib[idx]), dim=1)
+        check(f"fft_large_{tag}_vs_float64",
+              rel_err(y[idx].to(oracle.dtype), oracle), TOL_FFT)
+        yp = torch.complex(*BK.fft_big_plain(rb, ib, n1, n2))
+        check(f"fft_large_{tag}_vs_plain", rel_err(y, yp), TOL_FFT)
+        abs_err[f"fft_big_{tag}"] = max_err(y, yp)
+        del y, yp, oracle, xb
+    print("spectrum kernels (relative to the largest magnitude; K7 and "
+          "the Welch routes per bin):",
+          json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+
+    # ---- 12. the spectrum main path: every count starts at 0 here
+    SK.launches.update(fft=0, psd=0, psd_stream=0)
+    BK.launches.update(stage_a=0, psd_stage_b=0, fft_stage_b=0)
+    dev_blocks = [(c.real.contiguous(), c.imag.contiguous()) for c in caps]
+    host_blocks = [(r.cpu().pin_memory(), i.cpu().pin_memory())
+                   for r, i in dev_blocks]
+
+    def step(state, x):
+        _, psd = tspec.welch_psd_planar(x[0], x[1], nperseg=SP_NFFT)
+        return psd, state
+
+    def serve(blocks, n):
+        outs = []
+        torch.cuda.synchronize()
+        runner = StreamRunner(step, None, (blocks[i % 3] for i in range(n)),
+                              sink=outs.append,
+                              samples_of=lambda x: x[0].shape[0],
+                              depth=SERVE_DEPTH, device=dev)
+        return runner.run().msps, outs
+
+    rates, served = {}, {}
+    for name, blocks in (("device", dev_blocks),
+                         ("pinned_host", host_blocks)):
+        serve(blocks, SERVE_WARMUP)
+        rates[name], served[name] = serve(blocks, SERVE_BLOCKS)
+    print(f"Welch serving Msps ({SERVE_BLOCKS} blocks of {SP_N}, "
+          f"{SP_NFFT} bins, depth {SERVE_DEPTH}, after {SERVE_WARMUP} "
+          f"warm-up blocks) on {card}:", json.dumps(rates))
+    for a, b in zip(served["device"], served["pinned_host"]):
+        if not np.array_equal(a, b):
+            fail("Welch serving from device and pinned host blocks differ")
+    if not np.array_equal(served["device"][0], p_s.cpu().numpy()):
+        fail("a served Welch block differs from welch_psd_planar's")
+    _, p_main = tspec.welch_psd(x0, nperseg=SP_NFFT)
+    S_main = tspec.spectrogram(x0, nperseg=256)
+    rb, ib, wF, means, n1, n2 = big[BIG[0][0]]
+    F, B = BIG[0]
+    _, p_big = tspec.welch_psd(torch.complex(rb, ib).reshape(-1),
+                               nperseg=F, noverlap=0)
+    y_big = tfft.fft_large(torch.complex(rb, ib))
+    rb2, ib2 = big[BIG[1][0]][:2]
+    y_big2 = tfft.fft_large(torch.complex(rb2, ib2))
+    torch.cuda.synchronize()
+    main_counts = {"fft": SK.launches["fft"], "psd": SK.launches["psd"],
+                   "psd_stream": SK.launches["psd_stream"],
+                   "stage_a": BK.launches["stage_a"],
+                   "psd_stage_b": BK.launches["psd_stage_b"],
+                   "fft_stage_b": BK.launches["fft_stage_b"]}
+    print("spectrum main path launches:", json.dumps(main_counts))
+    want_counts = {"fft": 1, "psd": 1,
+                   "psd_stream": 2 * (SERVE_WARMUP + SERVE_BLOCKS),
+                   "stage_a": 3, "psd_stage_b": 1, "fft_stage_b": 2}
+    if main_counts != want_counts:
+        fail(f"spectrum main path launches {main_counts}, expected "
+             f"{want_counts}")
+    if not (torch.equal(p_main, p_k) and torch.isfinite(S_main).all()
+            and torch.isfinite(y_big).all() and torch.isfinite(y_big2).all()):
+        fail("spectrum main path outputs differ from the checked ones")
+    scale = 1.0 / float(np.sum(tspec.hann(F) ** 2)) / B
+    check("welch_big_vs_plain",
+          rel_err(p_big, BK.psd_big_plain(rb, ib, n1, n2, wF, means) * scale),
+          TOL_PSD)
+    del y_big, y_big2, S_main
+    for name, blocks in (("device-resident", dev_blocks),
+                         ("pinned host", host_blocks)):
+        profile_served(lambda: serve(blocks, 1), card,
+                       f"one served Welch block ({name})")
+        profile_served(lambda: serve(blocks, SERVE_BLOCKS), card,
+                       f"{SERVE_BLOCKS} served Welch blocks ({name})")
+
+    # ---- 13. times at the main path's shapes
+    r1k, i1k = re.view(SP_N // SP_NFFT, SP_NFFT), im.view(-1, SP_NFFT)
+    z1k = torch.complex(r1k, i1k)
+    s1k = 1.0 / np.sqrt(SP_NFFT)
+    zb = torch.complex(rb, ib)
+    times = {
+        "fft_planar": (lambda: SK.fft_planar(r1k, i1k, SP_NFFT, scale=s1k),
+                       lambda: SK.fft_plain(r1k, i1k, s1k),
+                       lambda: torch.fft.fft(z1k)),
+        "psd_stream_planar": (
+            lambda: SK.psd_stream_planar(re, im, w, SP_NFFT),
+            lambda: SK.psd_stream_plain(re, im, w, SP_NFFT), None),
+        "psd_planar": (lambda: SK.psd_planar(*segs, w, SP_NFFT),
+                       lambda: SK.psd_plain(*segs, w), None),
+        "fft_big_stage_a": (
+            lambda: BK.stage_a(rb, ib, n1, n2, wF, means),
+            lambda: BK.stage_a_plain(rb, ib, n1, n2, wF, means), None),
+        "psd_big": (
+            lambda: BK.psd_big_planar(rb, ib, n1, n2, wF, means),
+            lambda: BK.psd_big_plain(rb, ib, n1, n2, wF, means), None),
+        "fft_big": (lambda: BK.fft_big_planar(rb, ib, n1, n2),
+                    lambda: BK.fft_big_plain(rb, ib, n1, n2),
+                    lambda: torch.fft.fft(zb)),
+    }
+    ms = {}
+    for name, (kern, plain, lib) in times.items():
+        ms[name] = (cuda_ms(kern), cuda_ms(plain),
+                    cuda_ms(lib) if lib is not None else None)
+        print(f"{name} on {card}: kernel {ms[name][0]:.4f} ms, plain "
+              f"{ms[name][1]:.4f} ms, library "
+              f"{'-' if lib is None else f'{ms[name][2]:.4f} ms'}")
+    extra = {}
+    for n in (4096, 8192, 16384):
+        rr, ii = re.view(-1, n), im.view(-1, n)
+        extra[f"fft_planar_{n}"] = (
+            cuda_ms(lambda: SK.fft_planar(rr, ii, n)),
+            cuda_ms(lambda: torch.fft.fft(torch.complex(rr, ii))))
+    extra["welch_numerator_2^20x32"] = (
+        cuda_ms(lambda: BK.welch_numerator(rb, ib, wF)), None)
+    for k, (r, i) in {"3d": (rb.view(B, n1, n2), ib.view(B, n1, n2)),
+                      "blocked": tuple(p.view(B, n1, n2 // 128, 128)
+                                       .permute(0, 2, 1, 3).contiguous()
+                                       for p in (rb, ib))}.items():
+        extra[f"psd_big_{k}"] = (
+            cuda_ms(lambda: BK.psd_big_planar(r, i, n1, n2, wF, means)),
+            None)
+    F2 = BIG[1][0]
+    n12, n22 = BK.factorize(F2)
+    zb2 = torch.complex(rb2, ib2)
+    extra["fft_big_2^22x8"] = (
+        cuda_ms(lambda: BK.fft_big_planar(rb2, ib2, n12, n22)),
+        cuda_ms(lambda: torch.fft.fft(zb2)))
+    extra["spectrogram_256"] = (cuda_ms(lambda: tspec.spectrogram(
+        x0, nperseg=256)), cuda_ms(lambda: tspec.spectrogram(
+            x0, nperseg=256, use_kernel=False)))
+    print(f"more spectrum times on {card} (kernel ms, library or tensor "
+          f"route ms):", json.dumps(extra))
+
+    # ---- 14. kernel table rows: bytes and operations from the shapes
+    # (complex samples 8 bytes; an n-point FFT 5 n log2(n) flops; the
+    # window, demean, |.|^2 and sums ~10 flops a sample)
+    def lg(v):
+        return float(np.log2(v))
+
+    nseg = 2 * SP_N // SP_NFFT - 1
+    welch_flops = nseg * SP_NFFT * (5 * lg(SP_NFFT) + 10)
+    N = F * B
+    rows = [
+        ("fft_planar", "fft.cu", "comms_tpu/kernels/fft_pallas.py:373",
+         main_counts["fft"], max(abs_err[n] for n in (1024, 4096, 8192,
+                                                      16384)),
+         16 * SP_N, SP_N * (5 * lg(SP_NFFT) + 1)),
+        ("psd_planar", "psd.cu", "comms_tpu/kernels/fft_pallas.py:528",
+         main_counts["psd"], abs_err["psd_rows"], 8 * SP_N + 8 * SP_NFFT,
+         welch_flops),
+        ("psd_stream_planar", "psd.cu",
+         "comms_tpu/kernels/fft_pallas.py:672", main_counts["psd_stream"],
+         abs_err["psd_stream"], 8 * SP_N + 8 * SP_NFFT, welch_flops),
+        ("fft_big_stage_a", "fft_big.cu",
+         "comms_tpu/kernels/fft_big_pallas.py:390", main_counts["stage_a"],
+         abs_err[f"stage_a_{F}x{B}"], 16 * N + 4 * F,
+         N * (5 * lg(n1) + 10)),
+        ("psd_big", "fft_big.cu", "comms_tpu/kernels/fft_big_pallas.py:529",
+         main_counts["psd_stage_b"], abs_err[f"psd_big_{F}x{B}"],
+         8 * N + 8 * F, N * (5 * lg(F) + 10)),
+        ("fft_big", "fft_big.cu", "comms_tpu/kernels/fft_big_pallas.py:606",
+         main_counts["fft_stage_b"], abs_err[f"fft_big_{F}x{B}"], 16 * N,
+         N * 5 * lg(F)),
+    ]
+    return [kernel_row(name, f, rep, n, err, ms[name][0], ms[name][1],
+                       nbytes, flops, ms[name][2])
+            for name, f, rep, n, err, nbytes, flops in rows]
 
 
 def main() -> None:
@@ -1231,6 +1784,9 @@ def main() -> None:
           f"python {sys.version.split()[0]}")
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmul is on; the plain version must run in float32")
+    # The library yardsticks (F.conv1d) run on cuDNN, whose float32
+    # convolutions default to TF32: hold them to float32 as well.
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     # ---- 2. build
     t0 = time.perf_counter()
@@ -1241,11 +1797,15 @@ def main() -> None:
     print_ptxas_kernels(_build, ("fir_kernel", "qpsk_sym_kernel",
                                  "qpsk_panel_partial_kernel",
                                  "qpsk_panel_reduce_kernel",
-                                 "panel_reduce_kernel"))
+                                 "panel_reduce_kernel", "fft_rows_kernel",
+                                 "psd_partial_kernel", "psd_reduce_kernel",
+                                 "stage_a_kernel", "stage_b_psd_kernel",
+                                 "stage_b_fft_kernel"))
 
     rows = [fm_receiver_phases(dev, card)]
     rows += band_monitor_phases(dev, card)
     rows += qpsk_phases(dev, card)
+    rows += spectrum_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -175,6 +175,42 @@ def _bind(lib) -> None:
         ptr, ptr, i32, i32,        # p13, p24, hw, sps
         ptr, ptr,                  # out [16, 128], cudaStream_t
     ]
+    f32 = ctypes.c_float
+    lib.fft_launch.restype = i32
+    lib.fft_launch.argtypes = [
+        ptr, ptr, i64, i32,        # xr, xi, rows, n
+        ptr, ptr, f32,             # twiddles re, im, scale
+        ptr, ptr, ptr,             # yr, yi, cudaStream_t
+    ]
+    lib.psd_launch.restype = i32
+    lib.psd_launch.argtypes = [
+        ptr, ptr, i64, i64, i32,   # xr, xi, rows, row stride, n
+        ptr, ptr, i32,             # window, row weights, demean
+        ptr, ptr,                  # twiddles re, im
+        ptr, i32, i32,             # partial rows, their count, tiles each
+        ptr, ptr,                  # out [n], cudaStream_t
+    ]
+    lib.fft_big_stage_a_launch.restype = i32
+    lib.fft_big_stage_a_launch.argtypes = [
+        ptr, ptr, i32, i64, i32,   # xr, xi, segments, stride, blocked
+        i32, i32, i32, ptr, ptr,   # n1, n2, column tile, window, means
+        ptr, ptr,                  # n1 twiddles re, im
+        ptr, ptr, ptr, ptr,        # high table re, im, low table re, im
+        ptr, ptr, ptr, ptr,        # dr, di, tile sums, cudaStream_t
+    ]
+    lib.fft_big_stage_b_psd_launch.restype = i32
+    lib.fft_big_stage_b_psd_launch.argtypes = [
+        ptr, ptr, i32, i32, i32,   # dr, di, segments, n1, n2
+        ptr, ptr,                  # n2 twiddles re, im
+        ptr, ptr, i32, ptr,        # sparse bins, W there, count, means
+        ptr, ptr,                  # out [N], cudaStream_t
+    ]
+    lib.fft_big_stage_b_fft_launch.restype = i32
+    lib.fft_big_stage_b_fft_launch.argtypes = [
+        ptr, ptr, i32, i32, i32,   # dr, di, segments, n1, n2
+        ptr, ptr,                  # n2 twiddles re, im
+        ptr, ptr, ptr,             # yr, yi, cudaStream_t
+    ]
 
 
 def library_path() -> Path:

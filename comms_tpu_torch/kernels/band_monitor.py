@@ -65,7 +65,7 @@ def halo_rows(num_channels: int, audio_taps_len: int) -> int:
     return max(8, -(-need // 8) * 8)
 
 
-def zero_spec_halo(num_channels: int, audio_taps_len: int, device="cpu"):
+def zero_spec_halo(num_channels: int, audio_taps_len: int, device="cuda"):
     """Stream-start spectrum-tail planes (pair of [halo_rows, 128])."""
     h = halo_rows(num_channels, audio_taps_len)
     z = torch.zeros((h, _LANES), dtype=torch.float32, device=device)

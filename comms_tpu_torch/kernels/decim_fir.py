@@ -62,7 +62,7 @@ def max_taps(dec: int) -> int:
     return _LANES + 1 if dec == 1 else dec * _LANES
 
 
-def decim_ctx_zero(dec: int, device="cpu"):
+def decim_ctx_zero(dec: int, device="cuda"):
     """Zero carried context planes (stream start): one row of the
     ``dec*128`` input samples before the block."""
     z = torch.zeros((1, dec * _LANES), dtype=torch.float32, device=device)

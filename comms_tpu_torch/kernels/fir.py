@@ -42,7 +42,7 @@ MAX_TAPS = _CTX + 1
 launches = 0
 
 
-def planar_ctx_zero(device="cpu"):
+def planar_ctx_zero(device="cuda"):
     """Zero carried context planes (stream start)."""
     z = torch.zeros((_HALO_ROWS, _LANES), dtype=torch.float32,
                     device=device)

@@ -50,7 +50,7 @@ _NUM_TAPS = 63
 launches = 0
 
 
-def zero_ctx(device="cpu"):
+def zero_ctx(device="cuda"):
     """Stream-start context: raw-domain 127.5 (converted-domain 0) input
     tails, a zero demod tail and a zero previous mid sample."""
     f32 = torch.float32

@@ -72,13 +72,13 @@ class ChannelizerConfig:
         return self.block // self.num_channels
 
 
-def init_state(cfg: ChannelizerConfig, device="cpu"):
+def init_state(cfg: ChannelizerConfig, device="cuda"):
     """Carried input tail as [T-1, 2] float32 pairs."""
     T = cfg.num_channels * cfg.taps_per_branch
     return torch.zeros((T - 1, 2), dtype=torch.float32, device=device)
 
 
-def state_from_jax(state, device="cpu"):
+def state_from_jax(state, device="cuda"):
     """The JAX package's :func:`init_state`-shaped state (a numpy array)
     as this package's state on ``device``."""
     return torch.tensor(np.asarray(state, np.float32), device=device)

@@ -71,7 +71,7 @@ class BandMonitorConfig:
         return self.frames_per_block // self.audio_dec
 
 
-def init_state(cfg: BandMonitorConfig, device="cpu"):
+def init_state(cfg: BandMonitorConfig, device="cuda"):
     """(channelizer tail [T-1, 2] pairs, per-channel FM prev [K, 2]
     pairs, per-channel audio-FIR tails [K, MD-1]), float32."""
     T = cfg.num_channels * cfg.taps_per_branch
@@ -81,7 +81,7 @@ def init_state(cfg: BandMonitorConfig, device="cpu"):
             torch.zeros((K, cfg.audio_C.size - 1), **f32))
 
 
-def init_state_fused(cfg: BandMonitorConfig, device="cpu"):
+def init_state_fused(cfg: BandMonitorConfig, device="cuda"):
     """State of :func:`make_fused_block_fn`: (input-tail planes
     [CTX_SAMPLES] x2, spectrum-tail planes [halo_rows, 128] x2)."""
     z = torch.zeros((_BM.CTX_SAMPLES,), dtype=torch.float32, device=device)
@@ -90,14 +90,14 @@ def init_state_fused(cfg: BandMonitorConfig, device="cpu"):
     return (z, z.clone(), yh_r, yh_i.clone())
 
 
-def state_from_jax(state, device="cpu"):
+def state_from_jax(state, device="cuda"):
     """The JAX package's :func:`init_state`-shaped state (numpy arrays)
     as this package's state on ``device``."""
     return tuple(torch.tensor(np.asarray(s, np.float32), device=device)
                  for s in state)
 
 
-def fused_state_from_jax(state, device="cpu"):
+def fused_state_from_jax(state, device="cuda"):
     """The JAX package's :func:`init_state_fused`-shaped state (numpy
     arrays) as this package's; the layouts are the same."""
     return state_from_jax(state, device)

@@ -110,7 +110,7 @@ class FmReceiverConfig:
                 else self.num_taps - 1)
 
 
-def init_state(cfg: FmReceiverConfig, device="cpu"):
+def init_state(cfg: FmReceiverConfig, device="cuda"):
     """Zero state: (IQ FIR tail as [L, 2] f32 pairs, previous mid sample
     as [2] f32, audio FIR tail [L2] f32)."""
     f32 = torch.float32
@@ -121,7 +121,7 @@ def init_state(cfg: FmReceiverConfig, device="cpu"):
     )
 
 
-def state_from_jax(state, device="cpu"):
+def state_from_jax(state, device="cuda"):
     """The JAX package's :func:`init_state`-shaped state (as numpy
     arrays) as this package's state on ``device``; the streams then
     continue identically (the taps are the same constants on both
@@ -255,12 +255,12 @@ def fused_ctx_from_raw_tail(re_u8, im_u8):
     }
 
 
-def fused_init_state(device="cpu"):
+def fused_init_state(device="cuda"):
     """Stream-start context for :func:`make_fused_block_fn`."""
     return fm_chain.zero_ctx(device)
 
 
-def fused_state_from_jax(ctx, device="cpu"):
+def fused_state_from_jax(ctx, device="cuda"):
     """The JAX package's fused context dict (as numpy arrays) as this
     package's context on ``device``."""
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
@@ -301,7 +301,7 @@ def _fused_to_xla_state(cfg: FmReceiverConfig, fstate):
 
 def run_file(iq_path, cfg: Optional[FmReceiverConfig] = None,
              out_path=None, fused: Optional[bool] = None,
-             device="cpu") -> np.ndarray:
+             device="cuda") -> np.ndarray:
     """Demodulate a recorded u8-IQ file on ``device``; returns (and
     optionally writes, as f32 PCM) the audio stream.  A final partial
     block is zero-padded to the block shape and masked to its causally

@@ -43,7 +43,7 @@ _TWO_PI = float(np.float32(2.0 * np.pi))
 _STATE_DTYPES = {"shift2": torch.int32}
 
 
-def init_state_fast(cfg=None, device="cpu"):
+def init_state_fast(cfg=None, device="cuda"):
     """Stream-start state of both steps (``cfg``: a ``QpskRxConfig``):
     zero raw tails, zero estimates, the identity interpolator."""
     cfg = cfg if cfg is not None else _rx.QpskRxConfig()
@@ -62,7 +62,7 @@ def init_state_fast(cfg=None, device="cpu"):
     }
 
 
-def state_from_jax(state, device="cpu"):
+def state_from_jax(state, device="cuda"):
     """A JAX fast/fused stream state (dict of arrays: ``ctx_re, ctx_im,
     omega, theta, lag, shift2, fphase, pfine, warm``) as this package's
     state on ``device``."""

@@ -70,7 +70,7 @@ def branch_taps(prototype, num_channels: int) -> np.ndarray:
 
 
 def channelizer_init_ctx(prototype_len: int, dtype=torch.complex64,
-                         device="cpu"):
+                         device="cuda"):
     """Zero carried context of T-1 input samples."""
     return torch.zeros((int(prototype_len) - 1,), dtype=dtype,
                        device=device)

@@ -68,7 +68,7 @@ def fast_angle(z):
     return fast_atan2(z.imag, z.real)
 
 
-def fm_demod_init(dtype=torch.complex64, device="cpu"):
+def fm_demod_init(dtype=torch.complex64, device="cuda"):
     """Carried ``prev`` sample, zero-initialized (analog.rs:44-47)."""
     return torch.zeros((), dtype=dtype, device=device)
 

@@ -54,7 +54,7 @@ __all__ = [
 # that both packages build the same band matrices).
 _DEFAULT_PHASES = 128
 
-def init_ctx(num_taps: int, dtype=torch.complex64, device="cpu"):
+def init_ctx(num_taps: int, dtype=torch.complex64, device="cuda"):
     """Zero carried context (the reference's default zero state)."""
     return torch.zeros(max(num_taps - 1, 0), dtype=dtype, device=device)
 

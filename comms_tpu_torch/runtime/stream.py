@@ -70,7 +70,7 @@ class StreamRunner:
                  sink: Optional[Callable[[Any], None]] = None,
                  meter: Optional[ThroughputMeter] = None,
                  samples_of: Callable[[Any], int] = len,
-                 depth: int = 1, device="cpu"):
+                 depth: int = 1, device="cuda"):
         self.block_fn = block_fn
         self.state = state
         self.source = source

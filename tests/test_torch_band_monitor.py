@@ -37,7 +37,7 @@ def _jax_blocks(cfg, blocks):
 def _port_blocks(cfg, blocks, fn=TBM.band_monitor_planar):
     ctx_r = ctx_i = torch.zeros(TBM.CTX_SAMPLES)
     yh_r, yh_i = TBM.zero_spec_halo(cfg.num_channels,
-                                    cfg.audio_taps.shape[0])
+                                    cfg.audio_taps.shape[0], device="cpu")
     outs, states = [], []
     for re, im in blocks:
         audio, ctx_r, ctx_i, yh_r, yh_i = fn(
@@ -118,7 +118,7 @@ def test_validation_errors():
     re = torch.zeros(TBM.step_samples())
     ctx = torch.zeros(TBM.CTX_SAMPLES)
     yh_r, yh_i = TBM.zero_spec_halo(cfg.num_channels,
-                                    cfg.audio_taps.shape[0])
+                                    cfg.audio_taps.shape[0], device="cpu")
     args = (cfg.prototype, cfg.audio_taps)
     with pytest.raises(ValueError, match="audio_dec"):
         TBM.band_monitor_planar(re, re, *args, 3, ctx, ctx, yh_r, yh_i,

@@ -62,7 +62,8 @@ def test_channelize_block_matches_oracle_f64(K, M, N):
     x = _cx(rng, N, np.complex128)
     y, _ = tchan.channelize_block(
         torch.from_numpy(x), tchan.branch_taps(h, K),
-        tchan.channelizer_init_ctx(len(h), dtype=torch.complex128))
+        tchan.channelizer_init_ctx(len(h), dtype=torch.complex128,
+                                   device="cpu"))
     assert y.dtype == torch.complex128
     assert np.allclose(y.numpy(), tchan.channelize_oracle(x, h, K),
                        atol=1e-9)
@@ -76,7 +77,8 @@ def test_channelize_streaming_invariance():
     h = tchan.design_prototype(K, M)
     Hb = tchan.branch_taps(h, K)
     x = torch.from_numpy(_cx(rng, 1024, np.complex128))
-    ctx = tchan.channelizer_init_ctx(len(h), dtype=torch.complex128)
+    ctx = tchan.channelizer_init_ctx(len(h), dtype=torch.complex128,
+                                     device="cpu")
     y_once, _ = tchan.channelize_block(x, Hb, ctx)
     parts = []
     for i in range(4):
@@ -92,7 +94,8 @@ def test_tone_lands_in_its_channel():
     x = torch.from_numpy(np.exp(2j * np.pi * c * n / K))
     y, _ = tchan.channelize_block(
         x, tchan.branch_taps(h, K),
-        tchan.channelizer_init_ctx(len(h), dtype=torch.complex128))
+        tchan.channelizer_init_ctx(len(h), dtype=torch.complex128,
+                                   device="cpu"))
     power = np.mean(np.abs(y.numpy()[M:]) ** 2, axis=0)
     assert np.argmax(power) == c
     assert power[c] > 100 * np.delete(power, c).max()
@@ -110,7 +113,7 @@ def test_channelizer_model_matches_jax_streamed(K, planar):
     else:
         jblk = jmodel.make_block_fn(jcfg)
         tblk = tmodel.make_block_fn(tcfg)
-    js, ts = jmodel.init_state(jcfg), tmodel.init_state(tcfg)
+    js, ts = jmodel.init_state(jcfg), tmodel.init_state(tcfg, device="cpu")
     for b in range(3):
         pairs = rng.normal(size=(tcfg.block, 2)).astype(np.float32)
         if planar:
@@ -137,7 +140,7 @@ def test_channelizer_model_state_from_jax_continues():
     a, b = (rng.normal(size=(4096, 2)).astype(np.float32) for _ in range(2))
     _, js = jblk(jmodel.init_state(cfg_j), jnp.asarray(a))
     want, _ = jblk(js, jnp.asarray(b))
-    got, _ = tblk(tmodel.state_from_jax(np.asarray(js)),
+    got, _ = tblk(tmodel.state_from_jax(np.asarray(js), device="cpu"),
                   torch.from_numpy(b))
     want = np.asarray(want)
     assert np.max(np.abs(got.numpy() - want)) < TOL * np.abs(want).max()

@@ -69,7 +69,7 @@ def test_complex_entry_streams_like_one_block():
     y2, _ = TCK.channelize(x[N:], h, ctx)
     want, _ = tchan.channelize_block(
         x, tchan.branch_taps(h.astype(np.float32), 64),
-        tchan.channelizer_init_ctx(len(h)))
+        tchan.channelizer_init_ctx(len(h), device="cpu"))
     got = torch.cat([y1, y2])
     assert np.max(np.abs((got - want).numpy())) < TOL * np.abs(
         want.numpy()).max()
@@ -137,7 +137,8 @@ def test_model_kernel_route_matches_tensor_route(planar):
     cfg = tmodel.ChannelizerConfig(block=TCK.step_samples())
     make = tmodel.make_planar_block_fn if planar else tmodel.make_block_fn
     bk, bt = make(cfg, use_kernel=True), make(cfg, use_kernel=False)
-    sk, st = tmodel.init_state(cfg), tmodel.init_state(cfg)
+    sk = tmodel.init_state(cfg, device="cpu")
+    st = tmodel.init_state(cfg, device="cpu")
     for b in range(2):
         re, im = (torch.from_numpy(p) for p in _planes(rng, cfg.block))
         args = (re, im) if planar else (torch.stack([re, im], -1),)

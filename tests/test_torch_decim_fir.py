@@ -31,7 +31,7 @@ def _split_pair(x, taps, dec, tile_rows=16):
     want = JDF.fir_decimate_planar_pallas(
         jnp.asarray(x.real.copy()), jnp.asarray(x.imag.copy()), taps, dec,
         cr, ci, tile_rows=tile_rows, interpret=True)
-    tr, ti = TDF.decim_ctx_zero(dec)
+    tr, ti = TDF.decim_ctx_zero(dec, device="cpu")
     launches = TDF.launches
     got = TDF.fir_decimate_planar(
         torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy()),
@@ -81,7 +81,7 @@ def test_split_entry_max_taps(dec):
     want, got = _split_pair(x, taps, dec)
     _assert_close(got, want, TOL_SPLIT)
     z = torch.zeros(16 * dec * 128)
-    cr, ci = TDF.decim_ctx_zero(dec)
+    cr, ci = TDF.decim_ctx_zero(dec, device="cpu")
     with pytest.raises(ValueError, match="taps"):
         TDF.fir_decimate_planar(z, z, np.ones(T + 1, np.float32), dec, cr,
                                 ci, tile_rows=16)
@@ -115,7 +115,7 @@ def test_split_entry_mid_stream_ctx_and_batch_rows():
 
 
 def test_split_entry_validation_errors():
-    cr, ci = TDF.decim_ctx_zero(5)
+    cr, ci = TDF.decim_ctx_zero(5, device="cpu")
     z = torch.zeros(5 * 128 * 16)
     with pytest.raises(ValueError, match="taps"):
         TDF.fir_decimate_planar(z, z, np.ones(5 * 128 + 2, np.float32), 5,

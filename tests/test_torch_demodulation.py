@@ -63,7 +63,7 @@ def test_fm_demod_block_across_blocks_matches_jax(fast, cdtype, tol):
     x = (np.exp(1j * ph) * (1 + 0.1 * rng.normal(size=3 * n))).astype(
         cdtype)
     pj = jdem.fm_demod_init(jnp.dtype(cdtype))
-    pt = tdem.fm_demod_init(torch.from_numpy(x[:1]).dtype)
+    pt = tdem.fm_demod_init(torch.from_numpy(x[:1]).dtype, device="cpu")
     for b in range(3):
         xb = x[b * n:(b + 1) * n]
         yj, pj = jdem.fm_demod_block(jnp.asarray(xb), pj, fast=fast)
@@ -81,7 +81,8 @@ def test_zero_prev_first_sample_matches_jax(first, fast):
     x = np.array([first, 0.5 + 0.2j], np.complex64)
     yj, _ = jdem.fm_demod_block(jnp.asarray(x), jdem.fm_demod_init(),
                                 fast=fast)
-    yt, _ = tdem.fm_demod_block(torch.from_numpy(x), tdem.fm_demod_init(),
+    yt, _ = tdem.fm_demod_block(torch.from_numpy(x),
+                                tdem.fm_demod_init(device="cpu"),
                                 fast=fast)
     want = np.asarray(yj)[0]
     got = yt.numpy()[0]

@@ -106,11 +106,11 @@ def test_streaming_three_blocks_equals_one_shot(kind):
     taps = _taps(np.float64, False)
     if kind == "dense":
         step = lambda xb, c: tfir.fir_block(xb, taps, c)  # noqa: E731
-        ctx0 = tfir.init_ctx(63, torch.complex128)
+        ctx0 = tfir.init_ctx(63, torch.complex128, device="cpu")
     else:
         C = tfir.decimating_branch_taps(taps, 5)
         step = lambda xb, c: tfir.fir_decimate_poly(xb, C, c)  # noqa: E731
-        ctx0 = tfir.init_ctx(C.size, torch.complex128)
+        ctx0 = tfir.init_ctx(C.size, torch.complex128, device="cpu")
     once, _ = step(x, ctx0)
     outs, ctx = [], ctx0
     for b in range(3):

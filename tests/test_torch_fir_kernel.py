@@ -77,8 +77,8 @@ def test_fir_planar_streaming_matches_jax_kernel(real_taps):
 
     want = stream(jax_fir, jnp.asarray, JFP.planar_ctx_zero)
     got = stream(TFK.fir_planar, lambda v: torch.from_numpy(v.copy()),
-                 TFK.planar_ctx_zero)
-    cr, ci = TFK.planar_ctx_zero()
+                 lambda: TFK.planar_ctx_zero(device="cpu"))
+    cr, ci = TFK.planar_ctx_zero(device="cpu")
     yr, yi, _, _ = TFK.fir_planar(torch.from_numpy(xr), torch.from_numpy(xi),
                                   taps, cr, ci, tile_rows=16)
     np.testing.assert_array_equal(got, yr.numpy() + 1j * yi.numpy())
@@ -90,7 +90,7 @@ def test_fir_planar_single_tap_gain():
     N = 8 * 128
     xr = rng.normal(size=N).astype(np.float32)
     xi = rng.normal(size=N).astype(np.float32)
-    cr, ci = TFK.planar_ctx_zero()
+    cr, ci = TFK.planar_ctx_zero(device="cpu")
     yr, yi, _, _ = TFK.fir_planar(torch.from_numpy(xr), torch.from_numpy(xi),
                                   np.array([2.0], np.float32), cr, ci,
                                   tile_rows=8)
@@ -100,7 +100,7 @@ def test_fir_planar_single_tap_gain():
 
 def test_fir_next_context_is_the_tail():
     x = torch.arange(2048, dtype=torch.float32)
-    cr, ci = TFK.planar_ctx_zero()
+    cr, ci = TFK.planar_ctx_zero(device="cpu")
     _, _, nr, ni = TFK.fir_planar(x, -x, np.ones(3), cr, ci, tile_rows=8)
     assert nr.shape == (8, 128)
     np.testing.assert_array_equal(nr.reshape(-1).numpy(), x[-1024:].numpy())
@@ -109,7 +109,7 @@ def test_fir_next_context_is_the_tail():
 
 
 def test_fir_validation_errors():
-    cr, ci = TFK.planar_ctx_zero()
+    cr, ci = TFK.planar_ctx_zero(device="cpu")
     z = torch.zeros(1024)
     with pytest.raises(ValueError, match="1025"):
         TFK.fir_block(torch.zeros(2048, dtype=torch.complex64),

@@ -40,7 +40,7 @@ def test_staged_matches_jax_xla_streamed(pairs):
     else:
         jblk = jmodel.make_planar_block_fn(jcfg)
         tblk = tmodel.make_planar_block_fn(tcfg)
-    js, ts = jmodel.init_state(jcfg), tmodel.init_state(tcfg)
+    js, ts = jmodel.init_state(jcfg), tmodel.init_state(tcfg, device="cpu")
     for b in range(3):
         re, im = _planes(rng, tcfg.block)
         if pairs:
@@ -74,7 +74,7 @@ def test_staged_kernel_route_with_audio_fir(taps):
     assert tmodel._audio_tile_rows(tcfg) == 32
     jblk = jmodel.make_block_fn(jcfg, use_pallas=False)
     tblk = tmodel.make_block_fn(tcfg, use_kernel=True)
-    js, ts = jmodel.init_state(jcfg), tmodel.init_state(tcfg)
+    js, ts = jmodel.init_state(jcfg), tmodel.init_state(tcfg, device="cpu")
     x = rng.normal(size=(tcfg.block, 2)).astype(np.float32)
     for _ in range(2):
         want, js = jblk(js, jnp.asarray(x))
@@ -89,7 +89,8 @@ def test_fused_matches_jax_fused_streamed():
     jcfg, tcfg = _both(dict(block=TBM.step_samples()))
     jblk = jmodel.make_fused_block_fn(jcfg, interpret=True)
     tblk = tmodel.make_fused_block_fn(tcfg)
-    js, ts = jmodel.init_state_fused(jcfg), tmodel.init_state_fused(tcfg)
+    js = jmodel.init_state_fused(jcfg)
+    ts = tmodel.init_state_fused(tcfg, device="cpu")
     for b in range(2):
         re, im = _planes(rng, tcfg.block)
         want, js = jblk(js, jnp.asarray(re), jnp.asarray(im))
@@ -106,7 +107,8 @@ def test_fused_matches_staged_on_port():
     cfg = tmodel.BandMonitorConfig(num_channels=64, block=TBM.step_samples())
     staged = tmodel.make_planar_block_fn(cfg)
     fused = tmodel.make_fused_block_fn(cfg)
-    ss, fs = tmodel.init_state(cfg), tmodel.init_state_fused(cfg)
+    ss = tmodel.init_state(cfg, device="cpu")
+    fs = tmodel.init_state_fused(cfg, device="cpu")
     for b in range(2):
         re, im = (torch.from_numpy(p) for p in _planes(rng, cfg.block))
         a, ss = staged(ss, re, im)
@@ -135,7 +137,7 @@ def test_state_from_jax_continues_mid_stream(path):
         tol = TOL_FUSED
     _, js = jblk(js, jnp.asarray(a_re), jnp.asarray(a_im))
     want, _ = jblk(js, jnp.asarray(b_re), jnp.asarray(b_im))
-    ts = convert([np.asarray(s) for s in js])
+    ts = convert([np.asarray(s) for s in js], device="cpu")
     got, _ = tblk(ts, torch.from_numpy(b_re), torch.from_numpy(b_im))
     want = np.asarray(want)
     assert np.max(np.abs(got.numpy() - want)) < tol * max(
@@ -169,7 +171,7 @@ def test_fused_state_from_raw_tail_continues_the_stream():
     (a_re, a_im), (b_re, b_im) = (
         (torch.from_numpy(p) for p in _planes(rng, cfg.block))
         for _ in range(2))
-    _, carried = blk(tmodel.init_state_fused(cfg), a_re, a_im)
+    _, carried = blk(tmodel.init_state_fused(cfg, device="cpu"), a_re, a_im)
     L = tmodel.fused_tail_samples(cfg)
     rebuilt = tmodel.fused_state_from_raw_tail(cfg, a_re[-L:], a_im[-L:])
     want, _ = blk(carried, b_re, b_im)
@@ -184,8 +186,9 @@ def test_launch_counters_stay_zero_on_cpu():
     before = (TCK.launches, TDF.launches, TBM.launches)
     re, im = (torch.from_numpy(p) for p in _planes(rng, cfg.block))
     tmodel.make_planar_block_fn(cfg, use_kernel=True)(
-        tmodel.init_state(cfg), re, im)
-    tmodel.make_fused_block_fn(cfg)(tmodel.init_state_fused(cfg), re, im)
+        tmodel.init_state(cfg, device="cpu"), re, im)
+    tmodel.make_fused_block_fn(cfg)(
+        tmodel.init_state_fused(cfg, device="cpu"), re, im)
     assert (TCK.launches, TDF.launches, TBM.launches) == before
 
 
@@ -209,10 +212,10 @@ def test_band_monitor_recovers_per_channel_tones(path):
     im = torch.from_numpy(x.imag.copy())
     if path == "staged":
         audio, _ = tmodel.make_planar_block_fn(cfg)(
-            tmodel.init_state(cfg), re, im)
+            tmodel.init_state(cfg, device="cpu"), re, im)
     else:
         audio, _ = tmodel.make_fused_block_fn(cfg)(
-            tmodel.init_state_fused(cfg), re, im)
+            tmodel.init_state_fused(cfg, device="cpu"), re, im)
     audio = audio.numpy().astype(np.float64)[:, 64:]
     f = np.fft.rfftfreq(audio.shape[1], 1.0)
     for ch, fa in stations.items():

@@ -31,7 +31,7 @@ def _jax_chain(re, im, ctx):
 
 def _port_chain(re, im, ctx):
     return TK.fm_chain_fused(torch.from_numpy(re), torch.from_numpy(im),
-                             tfm.fused_state_from_jax(ctx), TAPS,
+                             tfm.fused_state_from_jax(ctx, device="cpu"), TAPS,
                              TAPS).numpy()
 
 
@@ -79,7 +79,7 @@ def test_stream_start_third_quadrant_first_samples():
 
 def test_wrapper_rejects_bad_operands():
     z = torch.zeros(TK.IN_PER_STEP, dtype=torch.uint8)
-    ctx = TK.zero_ctx()
+    ctx = TK.zero_ctx(device="cpu")
     with pytest.raises(ValueError, match="102400"):
         TK.fm_chain_fused(z[:1000], z[:1000], ctx, TAPS, TAPS)
     with pytest.raises(ValueError, match="uint8"):

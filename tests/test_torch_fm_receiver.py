@@ -42,7 +42,7 @@ def _jax_blocks(cfg_block, iq_blocks):
 def _port_blocks(cfg_block, iq_blocks, state=None):
     cfg = tfm.FmReceiverConfig(block=cfg_block)
     blk = tfm.make_block_fn(cfg)
-    st = tfm.init_state(cfg) if state is None else state
+    st = tfm.init_state(cfg, device="cpu") if state is None else state
     outs = []
     for xb in iq_blocks:
         a, st = blk(st, torch.from_numpy(xb))
@@ -73,7 +73,7 @@ def test_make_scan_fn_matches_jax():
     want, _ = jfm.make_scan_fn(cfg_j)(jfm.init_state(cfg_j),
                                       jnp.asarray(iq))
     cfg_t = tfm.FmReceiverConfig(block=block)
-    got, _ = tfm.make_scan_fn(cfg_t)(tfm.init_state(cfg_t),
+    got, _ = tfm.make_scan_fn(cfg_t)(tfm.init_state(cfg_t, device="cpu"),
                                      torch.from_numpy(iq))
     assert tuple(got.shape) == np.asarray(want).shape
     assert np.max(np.abs(got.numpy() - np.asarray(want))) <= TOL_BLOCK
@@ -85,7 +85,7 @@ def test_fused_block_fn_two_blocks_matches_jax_oracle():
     rng = np.random.default_rng(1)
     iq = rng.integers(0, 256, size=(2 * N, 2), dtype=np.uint8)
     blk = tfm.make_fused_block_fn(tfm.FmReceiverConfig(block=N))
-    st = tfm.fused_init_state()
+    st = tfm.fused_init_state(device="cpu")
     outs = []
     for b in range(2):
         xb = torch.from_numpy(iq[b * N:(b + 1) * N])
@@ -139,7 +139,7 @@ def test_state_from_jax_continues_the_stream(block):
     want, _ = _jax_blocks(block, blocks)
     # JAX runs block 0; the port takes its state and runs block 1.
     _, st_j = _jax_blocks(block, blocks[:1])
-    st_t = tfm.state_from_jax([np.asarray(s) for s in st_j])
+    st_t = tfm.state_from_jax([np.asarray(s) for s in st_j], device="cpu")
     got, _ = _port_blocks(block, blocks[1:], state=st_t)
     assert np.max(np.abs(got[0] - want[1])) <= TOL_BLOCK
 
@@ -158,7 +158,7 @@ def test_fused_state_from_jax_continues_the_stream():
         jnp.asarray(iq[0, N:]), jnp.asarray(iq[1, N:]), ctx_np,
         jfm.FM_LPF_TAPS, jfm.FM_LPF_TAPS, interpret=True))
     blk = tfm.make_fused_block_fn(tfm.FmReceiverConfig(block=N))
-    got, st = blk(tfm.fused_state_from_jax(ctx_np),
+    got, st = blk(tfm.fused_state_from_jax(ctx_np, device="cpu"),
                   torch.from_numpy(iq[0, N:].copy()),
                   torch.from_numpy(iq[1, N:].copy()))
     assert np.max(np.abs(got.numpy() - want)) < TOL_FUSED

@@ -61,7 +61,7 @@ def test_stream_steps_match_jax(signal, name):
     jstep = getattr(jstream, name)(jcfg)
     tstep = getattr(tstream, name)(tcfg)
     st_j = jstream.init_state_fast(jcfg)
-    st_t = tstream.init_state_fast(tcfg)
+    st_t = tstream.init_state_fast(tcfg, device="cpu")
     outs = []
     for b, (re, im) in enumerate(blocks):
         y_j, st_j = jstep(st_j, jnp.asarray(re), jnp.asarray(im))
@@ -88,9 +88,9 @@ def test_state_from_jax_continues_a_jax_stream(signal):
     jstep = jstream.make_stream_fast_fn(jcfg)
     st_j = jstream.init_state_fast(jcfg)
     _, st_j = jstep(st_j, *(jnp.asarray(p) for p in blocks[0]))
-    st_t = tstream.state_from_jax(st_j)
+    st_t = tstream.state_from_jax(st_j, device="cpu")
     assert st_t["shift2"].dtype == torch.int32
-    assert set(st_t) == set(tstream.init_state_fast(tcfg))
+    assert set(st_t) == set(tstream.init_state_fast(tcfg, device="cpu"))
     y_j, st_j = jstep(st_j, *(jnp.asarray(p) for p in blocks[1]))
     for make in (tstream.make_stream_fast_fn, tstream.make_stream_fused_fn):
         y_t, st_t2 = make(tcfg)(dict(st_t), *_torch(blocks[1]))
@@ -103,16 +103,17 @@ def test_stream_runner_equals_a_plain_loop(signal):
     blocks, _ = signal
     cfg = trx.QpskRxConfig()
     step = tstream.make_stream_fused_fn(cfg)
-    st = tstream.init_state_fast(cfg)
+    st = tstream.init_state_fast(cfg, device="cpu")
     want = []
     for blk in blocks:
         y, st = step(st, *_torch(blk))
         want.append(y.numpy())
     got = []
     runner = StreamRunner(lambda s, x: step(s, *x),
-                          tstream.init_state_fast(cfg), iter(blocks),
+                          tstream.init_state_fast(cfg, device="cpu"),
+                          iter(blocks),
                           sink=got.append, samples_of=lambda x: len(x[0]),
-                          depth=2)
+                          depth=2, device="cpu")
     runner.run()
     assert len(got) == 2
     for g, w in zip(got, want):
@@ -127,7 +128,7 @@ def test_fused_step_errors():
     with pytest.raises(ValueError, match="halfwidth"):
         tstream.make_stream_fused_fn(trx.QpskRxConfig(num_taps=48))
     step = tstream.make_stream_fused_fn(trx.QpskRxConfig())
-    st = tstream.init_state_fast()
+    st = tstream.init_state_fast(device="cpu")
     z = torch.zeros(B // 2)
     with pytest.raises(ValueError, match="outside kernel bounds"):
         step(st, z, z)

@@ -25,7 +25,7 @@ def _blocks(nb, block, seed=0):
 
 def _loop(cfg, blocks):
     blk = tfm.make_block_fn(cfg)
-    st = tfm.init_state(cfg)
+    st = tfm.init_state(cfg, device="cpu")
     outs = []
     for xb in blocks:
         a, st = blk(st, torch.from_numpy(xb))
@@ -40,9 +40,10 @@ def test_stream_runner_equals_plain_loop(depth):
     want, st_want = _loop(cfg, blocks)
     got = []
     meter = ThroughputMeter()
-    runner = StreamRunner(tfm.make_block_fn(cfg), tfm.init_state(cfg),
+    runner = StreamRunner(tfm.make_block_fn(cfg),
+                          tfm.init_state(cfg, device="cpu"),
                           iter(blocks), sink=got.append, meter=meter,
-                          depth=depth)
+                          depth=depth, device="cpu")
     runner.run()
     assert runner.blocks_done == 6 and meter.blocks == 6
     assert meter.samples == 6 * cfg.block
@@ -67,8 +68,9 @@ def test_stream_runner_source_reusing_its_buffer():
             yield buf
 
     got = []
-    StreamRunner(tfm.make_block_fn(cfg), tfm.init_state(cfg), source(),
-                 sink=got.append, depth=4).run()
+    StreamRunner(tfm.make_block_fn(cfg), tfm.init_state(cfg, device="cpu"),
+                 source(),
+                 sink=got.append, depth=4, device="cpu").run()
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
@@ -79,10 +81,11 @@ def test_stream_runner_fused_step_with_tuple_blocks():
     fblock = tfm.make_fused_block_fn(cfg)
     got = []
     runner = StreamRunner(
-        lambda s, x: fblock(s, *x), tfm.fused_init_state(),
+        lambda s, x: fblock(s, *x), tfm.fused_init_state(device="cpu"),
         ((np.ascontiguousarray(b[:, 0]), np.ascontiguousarray(b[:, 1]))
          for b in blocks),
-        sink=got.append, samples_of=lambda x: len(x[0]), depth=2)
+        sink=got.append, samples_of=lambda x: len(x[0]), depth=2,
+        device="cpu")
     meter = runner.run(max_blocks=2)
     assert meter.samples == 2 * cfg.block
     want, _ = _loop(cfg, blocks)
@@ -96,7 +99,8 @@ def test_stream_runner_meter_covers_the_final_drain():
     delay = 0.02
     runner = StreamRunner(lambda s, x: (x, s), None,
                           (np.zeros(10, np.float32) for _ in range(6)),
-                          sink=lambda y: time.sleep(delay), depth=4)
+                          sink=lambda y: time.sleep(delay), depth=4,
+                          device="cpu")
     meter = runner.run()
     assert meter.blocks == 6 and meter.samples == 60
     assert meter.seconds >= 6 * delay
@@ -127,10 +131,12 @@ def test_package_imports_no_jax():
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.split())
     for name in ("ops.fir", "ops.demodulation", "ops.channelizer",
-                 "ops.taps", "ops.mixer", "ops.interp",
+                 "ops.taps", "ops.mixer", "ops.interp", "ops.fft",
+                 "ops.spectrum",
                  "kernels._build", "kernels.fm_chain", "kernels.channelizer",
                  "kernels.decim_fir", "kernels.band_monitor", "kernels.fir",
-                 "kernels.qpsk_sym", "kernels.panel_reduce",
+                 "kernels.qpsk_sym", "kernels.panel_reduce", "kernels.fft",
+                 "kernels.fft_big",
                  "models.fm_receiver", "models.channelizer",
                  "models.fm_band_monitor", "models.qpsk_rx",
                  "models.qpsk_rx_stream", "runtime.metrics",
