@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the FM broadcast
-receiver, the wideband FM band monitor, the QPSK receiver and FFT and
-Welch spectrum monitoring.
+receiver, the wideband FM band monitor, the QPSK receiver, FFT and Welch
+spectrum monitoring, and the sharded layer on an 8-shard mesh of the
+card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -77,7 +78,26 @@ Phases (each raises on failure, so any failure exits non-zero):
 14. every kernel table row carries its bound (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s, from this run's shapes) and, where
    one PyTorch call computes the same function (``F.conv1d`` for the FIR
-   entries, ``torch.fft.fft`` for the FFT entries), that call's time.
+   entries, ``torch.fft.fft`` for the FFT entries), that call's time;
+15. the ring halo exchange kernel (K12) against its plain version bit for
+   bit, at the sharded paths' halos (complex64, float32 and u8 tails, the
+   wrapped and the carried-context forms, the 2-D column rings, both
+   planes in one launch) and on a 1 MiB-per-shard ring;
+16. the sharded layer on an 8-shard mesh of the card (the counts of every
+   kernel start at 0 before each path and are read after it): the sharded
+   wideband chain at 26,214,400 samples against the same chain on one
+   shard and its ``rdma_halo`` build bit for bit, two blocks streamed; the
+   sharded fused FM step bit for bit against a sequential run of the
+   fused block step over the 8 per-shard blocks, served through
+   ``StreamRunner`` beside the unsharded fused step; the band monitor at
+   16,777,216, K=16, fused per shard (K9) and on the 2 x 4 mesh (K8 + K2
+   per shard) against the one-device paths; the sharded QPSK receiver on
+   the 2^25-sample capture with zero bit errors; the frequency-sharded
+   (dfft) and segment-sharded (K10 per shard) PSDs at 2^20 x 32 per bin
+   against ``welch_psd``; K12's launches per path and each path's
+   per-shard kernel launches;
+17. ``dryrun_multichip(8)`` on the card, and K12's kernel, plain-version,
+   bound and library (``torch._foreach_copy_``) times.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
@@ -175,6 +195,21 @@ TOL_LAYOUT = 1e-5
 TOL_WELCH = 1e-4
 TOL_INVOLUTION = 1e-4
 
+# The sharded layer: an in-process mesh of 8 shards on the one card (the
+# counterpart of the JAX package's 8-device virtual CPU mesh), the FM and
+# wideband blocks at BLOCK (3,276,800 samples a shard), the band monitor
+# at BM_BLOCK, the QPSK capture, the PSDs at BIG[0]; K12 is also timed on
+# a ring of 1 MiB per shard.  The sharded chain against the same chain on
+# one shard and the 2-D band monitor against the one-device staged path:
+# the same float32 operations on the same windows (the JAX tests' bounds,
+# 1e-4 and 1e-5 absolute); the sharded fused band monitor against the
+# one-device fused path at TOL_BM (its boundary state is recomputed from
+# the raw tail); the PSDs per bin at TOL_PSD.
+SH_SHARDS = 8
+SH_RING_MIB = 1 << 20
+TOL_SH_CHAIN = 1e-4
+TOL_SH_2D = 1e-5
+
 # The card's published rates (NVIDIA H100 SXM data sheet, at its 700 W
 # limit): a kernel's bound is the larger of its bytes over the memory
 # rate and its operations over the float32 rate of the CUDA cores.
@@ -228,6 +263,13 @@ def conv1d_ms(rows, taps, stride: int, want=None):
     return cuda_ms(lambda: F.conv1d(x, w, stride=stride))
 
 
+def fm_tones(t, sin=np.sin):
+    """The FM captures' instantaneous frequency (rad/sample) at sample
+    indices ``t``: a carrier offset and two modulating tones."""
+    return (0.05 + 0.12 * sin(2 * np.pi * 1.3e-4 * t)
+            + 0.08 * sin(2 * np.pi * 3.1e-5 * t + 1.0))
+
+
 def synth_capture(n: int, seed: int):
     """u8 IQ [n, 2] of a carrier frequency-modulated by two tones, at
     amplitude 100 around 127.5 plus Gaussian noise (sigma 2), and its
@@ -235,8 +277,7 @@ def synth_capture(n: int, seed: int):
     phase step per mid-rate sample (5w) stays far from +-pi."""
     rng = np.random.default_rng(seed)
     t = np.arange(n, dtype=np.float64)
-    w = (0.05 + 0.12 * np.sin(2 * np.pi * 1.3e-4 * t)
-         + 0.08 * np.sin(2 * np.pi * 3.1e-5 * t + 1.0))
+    w = fm_tones(t)
     ph = np.cumsum(w)
     iq = np.empty((n, 2), np.uint8)
     iq[:, 0] = np.clip(np.round(100 * np.cos(ph) + 127.5
@@ -1762,6 +1803,391 @@ def spectrum_phases(dev, card: str) -> list:
             for name, f, rep, n, err, nbytes, flops in rows]
 
 
+def fm_u8_planes(n: int, seed: int, dev):
+    """u8 planes [n] on the card of the FM capture of ``synth_capture``
+    (the same modulating tones, amplitude 100 around 127.5, Gaussian noise
+    of sigma 2), made with torch on the card from float64 phases: numpy
+    takes seconds per capture of this size."""
+    import torch
+
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    ph = torch.cumsum(fm_tones(t, torch.sin), 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    noise = torch.randn(2, n, generator=g, dtype=torch.float64, device=dev)
+    re = torch.clamp(torch.round(100 * torch.cos(ph) + 127.5 + 2 * noise[0]),
+                     0, 255).to(torch.uint8)
+    im = torch.clamp(torch.round(100 * torch.sin(ph) + 127.5 + 2 * noise[1]),
+                     0, 255).to(torch.uint8)
+    return re, im
+
+
+def sharded_phases(dev, card: str) -> list:
+    """Phases 15-17: the sharded layer on an 8-shard mesh of the card; the
+    kernel table row of K12."""
+    import torch
+
+    from comms_tpu_torch.kernels import band_monitor as BM
+    from comms_tpu_torch.kernels import channelizer as CK
+    from comms_tpu_torch.kernels import decim_fir as DF
+    from comms_tpu_torch.kernels import fft_big as BK
+    from comms_tpu_torch.kernels import fm_chain as FK
+    from comms_tpu_torch.kernels import halo_ring as HR
+    from comms_tpu_torch.kernels import qpsk_sym as QS
+    from comms_tpu_torch.models import fm_band_monitor as bm
+    from comms_tpu_torch.models import fm_receiver as fm
+    from comms_tpu_torch.models import qpsk_rx as trx
+    from comms_tpu_torch.ops import spectrum as tspec
+    from comms_tpu_torch.parallel import dryrun
+    from comms_tpu_torch.parallel import fused_wideband as fw
+    from comms_tpu_torch.parallel import qpsk_rx_sharded as qs
+    from comms_tpu_torch.parallel import sharding as sh
+    from comms_tpu_torch.parallel import wideband as wb
+    from comms_tpu_torch.parallel import wideband2d as w2
+    from comms_tpu_torch.runtime import StreamRunner
+
+    mesh = sh.time_mesh(SH_SHARDS, device=dev)
+    mesh1 = sh.time_mesh(1, device=dev)
+    per = BLOCK // SH_SHARDS
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+
+    # ---- 15. K12 against its plain version, bit for bit: the wrapped and
+    # the ctx forms at the main paths' halos (complex64, float32, u8), the
+    # 2-D column rings, several planes in one launch, a 1 MiB-per-shard
+    # ring.  The inputs stand in for the paths' tails at their lengths.
+    def ring(n, length, trailing=(), dtype=torch.float32, rings=1):
+        shape = (length,) + tuple(trailing)
+        if dtype == torch.uint8:
+            return [[torch.randint(0, 256, shape, generator=g, device=dev,
+                                   dtype=dtype) for _ in range(n)]
+                    for _ in range(rings)]
+        return [[torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for _ in range(n)] for _ in range(rings)]
+
+    T = len(fm.FM_LPF_TAPS)
+    cases = {
+        # name: (rings, halo, ctx per ring or None)
+        "iq_halo_c64": (ring(8, per, dtype=torch.complex64), T - 1, True),
+        "yprev_c64": (ring(8, per, dtype=torch.complex64), 1, True),
+        "fm_prev_c64": (ring(8, per // 5, dtype=torch.complex64), 1, True),
+        "audio_halo_f32": (ring(8, per // 5), T - 1, True),
+        "fused_raw_tails_u8": (ring(8, per, dtype=torch.uint8, rings=2),
+                               fm.FUSED_TAIL_SAMPLES, False),
+        "qpsk_ctx_f32": (ring(8, QPSK_N // 8, rings=2),
+                         trx.fused_gemm_ctx_len(trx.QpskRxConfig()), True),
+        "2d_chan_halo_f32": (ring(8, BM_BLOCK // 8, rings=2),
+                             BM_K * 8 - 1, True),
+        "2d_demod_rows_f32": (ring(2, BM_BLOCK // 2 // BM_K, (BM_K // 4,),
+                                   rings=8), 1, True),
+        "2d_audio_rows_f32": (ring(2, BM_BLOCK // 2 // BM_K, (BM_K // 4,),
+                                   rings=4), 31, True),
+        "ring_1MiB_f32": (ring(8, SH_RING_MIB // 4), SH_RING_MIB // 4,
+                          False),
+    }
+    L0 = HR.launches
+    k12_err = 0.0
+    widths = {}
+    for name, (rings, halo, with_ctx) in cases.items():
+        ctxs = ([torch.zeros_like(r[0][:halo]) + 0.5 for r in rings]
+                if with_ctx else None)
+        if with_ctx and rings[0][0].dtype == torch.uint8:
+            ctxs = [c.to(torch.uint8) for c in ctxs]
+        got = HR.exchange(rings, halo, ctxs)
+        want = HR.exchange_plain(rings, halo, ctxs)
+        torch.cuda.synchronize()
+        t = rings[0][0][-halo:]
+        widths[name] = HR.copy_width([t.data_ptr()],
+                                     t.numel() * t.element_size())
+        for ga, wa in zip(got, want):
+            for a, b in zip(ga, wa):
+                if not torch.equal(a, b):
+                    fail(f"K12 {name}: kernel and plain differ")
+                if a.is_floating_point() or a.is_complex():
+                    k12_err = max(k12_err, max_err(a, b))
+    if HR.launches - L0 != len(cases):
+        fail(f"K12 checks: {HR.launches - L0} launches for {len(cases)} "
+             f"calls")
+    print(f"K12 kernel == plain bit for bit on {len(cases)} forms; copy "
+          f"widths (bytes): {json.dumps(widths)}")
+
+    # ---- 16a. the sharded wideband chain at BLOCK (per shard BLOCK / 8):
+    # within 1e-4 of the same chain on one shard, the rdma_halo build bit
+    # for bit the default one, two blocks streamed.  Counts start here.
+    counts = {}
+    re_u8, im_u8 = fm_u8_planes(2 * BLOCK, 43, dev)
+    pairs = torch.stack([re_u8, im_u8], -1).float().sub_(127.5).div_(127.5)
+    cfg = wb.WidebandConfig(fm.FM_LPF_TAPS, block=BLOCK, dec1=5, dec2=5)
+    steps = {"sharded": wb.make_sharded_step(cfg, mesh),
+             "rdma_halo": wb.make_sharded_step(cfg, mesh, rdma_halo=True),
+             "one_shard": wb.make_sharded_step(cfg, mesh1)}
+    outs = {}
+    HR.launches = 0
+    for name, step in steps.items():
+        st = wb.init_state(cfg, dev)
+        res = []
+        for b in range(2):
+            (audio, freq), st = step(st, pairs[b * BLOCK:(b + 1) * BLOCK])
+            res.append((audio, freq))
+        outs[name] = (res, st)
+    torch.cuda.synchronize()
+    counts["wideband_chain"] = HR.launches
+    if HR.launches != 2 * 2 * 4:
+        fail(f"wideband chain: {HR.launches} K12 launches, expected 16 "
+             f"(two sharded builds x two blocks x four rings)")
+    e_chain, e_freq = 0.0, 0.0
+    for (a, f), (a1, f1), (ar, fr) in zip(outs["sharded"][0],
+                                          outs["one_shard"][0],
+                                          outs["rdma_halo"][0]):
+        if a.shape != (BLOCK // 25,) or not torch.isfinite(a).all():
+            fail("wideband chain: audio shape or non-finite values")
+        if not (torch.equal(a, ar) and torch.equal(f, fr)):
+            fail("wideband chain: rdma_halo differs from the default")
+        e_chain = max(e_chain, max_err(a, a1))
+        e_freq = max(e_freq, abs(float(f) - float(f1)))
+    e_state = max(max_err(x, y) for x, y in zip(outs["sharded"][1],
+                                                 outs["one_shard"][1]))
+    corr = demod_matches_tones(outs["sharded"][0][0][0].cpu().numpy(),
+                               fm_tones(np.arange(BLOCK, dtype=np.float64)))
+    print(f"wideband chain ({SH_SHARDS} x {per}, 2 blocks): vs one shard "
+          f"audio {e_chain:.3g}, freq {e_freq:.3g}, state {e_state:.3g}; "
+          f"rdma_halo bit-equal; tone correlation {corr:.5f}")
+    if max(e_chain, e_freq, e_state) > TOL_SH_CHAIN or corr < 0.99:
+        fail("the sharded wideband chain disagrees with one shard")
+    del outs, pairs
+
+    # ---- 16b. the sharded fused FM step at BLOCK: bit for bit a
+    # sequential run of make_fused_block_fn over the 8 per-shard blocks;
+    # served through StreamRunner beside the unsharded fused step.
+    fstep = fw.make_sharded_fused_step(mesh, block=BLOCK)
+    seq = fm.make_fused_block_fn(fm.FmReceiverConfig(block=per))
+    FK.launches = HR.launches = 0
+    a_sh, st_sh = fstep(fm.fused_init_state(dev), re_u8[:BLOCK],
+                        im_u8[:BLOCK])
+    a2_sh, st_sh = fstep(st_sh, re_u8[BLOCK:], im_u8[BLOCK:])
+    torch.cuda.synchronize()
+    step_counts = (FK.launches, HR.launches)
+    st = fm.fused_init_state(dev)
+    ref = []
+    for b in range(2 * SH_SHARDS):
+        a, st = seq(st, re_u8[b * per:(b + 1) * per],
+                    im_u8[b * per:(b + 1) * per])
+        ref.append(a)
+    ref = torch.cat(ref)
+    got = torch.cat([a_sh, a2_sh])
+    n_diff = int((got != ref).sum())
+    print(f"sharded fused FM (2 x {BLOCK}): {n_diff} of {got.numel()} audio "
+          f"samples differ from the sequential per-shard blocks (max "
+          f"{max_err(got, ref):.3g}); K1, K12 launches {step_counts}")
+    if n_diff or not all(torch.equal(st_sh[k], st[k]) for k in st):
+        fail("the sharded fused FM step is not bit-equal to the sequential "
+             "blocks")
+    if step_counts != (2 * SH_SHARDS, 2):
+        fail(f"sharded fused FM: (K1, K12) launches {step_counts}")
+    blocks = [(re_u8[:BLOCK], im_u8[:BLOCK]), (re_u8[BLOCK:], im_u8[BLOCK:])]
+    unsharded = fm.make_fused_block_fn(fm.FmReceiverConfig(block=BLOCK))
+
+    def serve(fn, n):
+        sink = []
+        torch.cuda.synchronize()
+        runner = StreamRunner(lambda s, x: fn(s, *x), fm.fused_init_state(dev),
+                              (blocks[i % 2] for i in range(n)),
+                              sink=sink.append,
+                              samples_of=lambda x: x[0].shape[0],
+                              depth=SERVE_DEPTH, device=dev)
+        return runner.run().msps, sink
+
+    FK.launches = HR.launches = 0
+    rates = {}
+    for name, fn in (("sharded", fstep), ("unsharded", unsharded),
+                     ("sharded_again", fstep)):
+        serve(fn, SERVE_WARMUP)
+        rates[name], served = serve(fn, SERVE_BLOCKS)
+        if name == "sharded" and not np.array_equal(
+                served[1], a2_sh.cpu().numpy()):
+            fail("served sharded block differs from the step's")
+    torch.cuda.synchronize()
+    n_blk = SERVE_WARMUP + SERVE_BLOCKS
+    serve_counts = (FK.launches, HR.launches)
+    print(f"fused FM serving Msps ({SERVE_BLOCKS} blocks of {BLOCK}, depth "
+          f"{SERVE_DEPTH}, after {SERVE_WARMUP} warm-up blocks) on {card}: "
+          f"{json.dumps(rates)}; (K1, K12) launches {serve_counts}")
+    if serve_counts != (2 * n_blk * SH_SHARDS + n_blk, 2 * n_blk):
+        fail(f"fused FM serving: (K1, K12) launches {serve_counts}")
+    counts["fused_fm"] = step_counts[1] + serve_counts[1]
+    # where a sharded block's time goes: the host's enqueue of one step
+    # and the device's busy share of one served block, beside unsharded
+    enqueue = {}
+    for name, fn in (("sharded", fstep), ("unsharded", unsharded)):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(fm.fused_init_state(dev), *blocks[0])
+            ts.append((time.perf_counter() - t0) * 1e3)
+        enqueue[name] = statistics.median(ts)
+        profile_served(lambda: serve(fn, 1), card,
+                       f"one served {name} fused FM block")
+    print(f"host enqueue of one fused FM step (ms, median of 5) on {card}:",
+          json.dumps(enqueue))
+    del blocks, ref, got, re_u8, im_u8
+
+    # ---- 16c. the band monitor at BM_BLOCK, K=16: the fused step per
+    # shard (K9) against the one-device fused step, the 2-D (2 x 4) mesh
+    # (K8 + K2 per shard) against the one-device staged step, two blocks
+    re16, im16, _ = station_capture(2 * BM_BLOCK, BM_K, 44, dev)
+    bcfg = bm.BandMonitorConfig(num_channels=BM_K, block=BM_BLOCK)
+    bblocks = [(re16[b * BM_BLOCK:(b + 1) * BM_BLOCK],
+                im16[b * BM_BLOCK:(b + 1) * BM_BLOCK]) for b in range(2)]
+    one_f = bm.make_fused_block_fn(bcfg)
+    one_s = bm.make_planar_block_fn(bcfg)
+    st_f, st_s = bm.init_state_fused(bcfg, dev), bm.init_state(bcfg, dev)
+    want_f, want_s = [], []
+    for r, i in bblocks:
+        a, st_f = one_f(st_f, r, i)
+        want_f.append(a)
+        a, st_s = one_s(st_s, r, i)
+        want_s.append(a)
+    torch.cuda.synchronize()
+    bstep = fw.make_sharded_band_monitor_step(bcfg, mesh, block=BM_BLOCK)
+    step2d = w2.make_sharded_band_monitor_2d(bcfg,
+                                             w2.mesh_2d(2, 4, device=dev))
+    pairs16 = torch.stack([re16, im16], -1)
+    BM.launches = CK.launches = DF.launches = HR.launches = 0
+    st_b = bm.init_state_fused(bcfg, dev)
+    got_f = []
+    for r, i in bblocks:
+        a, st_b = bstep(st_b, r, i)
+        got_f.append(a)
+    torch.cuda.synchronize()
+    fused_counts = (BM.launches, HR.launches)
+    st2 = bm.init_state(bcfg, dev)
+    got_2d = []
+    BM.launches = CK.launches = DF.launches = HR.launches = 0
+    for b in range(2):
+        (a, power), st2 = step2d(st2, pairs16[b * BM_BLOCK:
+                                             (b + 1) * BM_BLOCK])
+        got_2d.append(a)
+    torch.cuda.synchronize()
+    counts_2d = (CK.launches, DF.launches, BM.launches, HR.launches)
+    e_f = max(rel_err(g_, w_) for g_, w_ in zip(got_f, want_f))
+    e_2d = max(max_err(g_, w_) for g_, w_ in zip(got_2d, want_s))
+    e_2d_state = max(max_err(x, y) for x, y in zip(st2, st_s))
+    print(f"band monitor K={BM_K}, 2 x {BM_BLOCK}: fused per shard vs one "
+          f"device {e_f:.3g} relative, (K9, K12) launches {fused_counts}; "
+          f"2-D 2x4 vs one-device staged {e_2d:.3g} (state "
+          f"{e_2d_state:.3g}), (K8, K2, K9, K12) launches {counts_2d}")
+    if not e_f <= TOL_BM or not max(e_2d, e_2d_state) <= TOL_SH_2D:
+        fail("a sharded band monitor disagrees with the one-device path")
+    if fused_counts != (2 * SH_SHARDS, 2):
+        fail(f"sharded fused band monitor: (K9, K12) {fused_counts}")
+    if counts_2d != (2 * SH_SHARDS, 2 * SH_SHARDS, 0, 2 * 3):
+        fail(f"2-D band monitor: (K8, K2, K9, K12) launches {counts_2d}")
+    if not torch.isfinite(power).all() or power.shape != (BM_K,):
+        fail("2-D band monitor: power map")
+    counts["band_monitor_fused"] = fused_counts[1]
+    counts["band_monitor_2d"] = counts_2d[3]
+    del re16, im16, pairs16, bblocks, want_f, want_s, got_f, got_2d
+
+    # ---- 16d. the sharded QPSK receiver on the 2^25-sample capture: zero
+    # bit errors, K5's panel and symbol entries per shard
+    re, im, bits = qpsk_capture(dev, seed=7)
+    qcfg = trx.QpskRxConfig()
+    rx = qs.make_sharded_rx_step(qcfg, mesh)
+    for k in QS.launches:
+        QS.launches[k] = 0
+    HR.launches = 0
+    sym, diag = rx(re, im)
+    torch.cuda.synchronize()
+    q_counts = (QS.launches["qpsk_panels"],
+                QS.launches["qpsk_symbol_gemm_scalars"], HR.launches)
+    M = QPSK_N // 4
+    rot, lag0, head_errs = qpsk_align(sym, 0, bits)
+    lo, hi = lag0 + QPSK_MARGIN, M - QPSK_MARGIN
+    ber = qpsk_bit_errors(sym[:, lo:hi], lo, bits, rot, lag0)
+    d = {k: float(v) for k, v in diag.items()}
+    print(f"sharded QPSK receiver ({SH_SHARDS} x {QPSK_N // SH_SHARDS}): "
+          f"{json.dumps(d)}; lag {lag0} rot {rot}; {ber} bit errors over "
+          f"{2 * (hi - lo)} bits; (K5 panels, K5 symbols, K12) launches "
+          f"{q_counts}")
+    if ber or head_errs or sym.shape != (2, M):
+        fail(f"sharded QPSK receiver: {ber} bit errors")
+    if abs(d["freq"] - QPSK_CFO) >= 0.01:
+        fail(f"sharded QPSK frequency estimate {d['freq']}")
+    if q_counts != (SH_SHARDS, SH_SHARDS, 1):
+        fail(f"sharded QPSK: (K5 panels, K5 symbols, K12) {q_counts}")
+    counts["qpsk_rx"] = q_counts[2]
+    del re, im, sym
+
+    # ---- 16e. the sharded PSDs at 2^20 x 32: frequency-sharded through
+    # the dfft, segment-sharded through K10 per shard; per bin against
+    # welch_psd
+    F, B = BIG[0]
+    xb = torch.randn(2, B, F, generator=g, device=dev) + 0.05
+    x = torch.complex(xb[0], xb[1])
+    _, want = tspec.welch_psd(x.reshape(-1), nperseg=F, noverlap=0)
+    pairs_b = xb.permute(1, 2, 0).contiguous()            # [B, F, 2]
+    BK.launches.update(stage_a=0, psd_stage_b=0, fft_stage_b=0)
+    HR.launches = 0
+    p_freq = wb.make_sharded_psd(F, mesh)(pairs_b)
+    dfft_counts = dict(BK.launches)
+    p_seg = wb.make_sharded_psd_segments(F, mesh)(pairs_b)
+    torch.cuda.synchronize()
+    seg_counts = {k: v - dfft_counts[k] for k, v in BK.launches.items()}
+    e_psd = {"frequency_sharded_dfft": bin_err(p_freq, want),
+             "segment_sharded_k10": bin_err(p_seg, want)}
+    print(f"sharded PSDs at {F} x {B} vs welch_psd per bin: "
+          f"{json.dumps(e_psd)}; K10 launches (dfft route, segment route) "
+          f"{dfft_counts}, {seg_counts}; K12 {HR.launches}")
+    if max(e_psd.values()) > TOL_PSD:
+        fail(f"sharded PSDs beyond {TOL_PSD} per bin: {e_psd}")
+    if (dfft_counts != {"stage_a": 0, "psd_stage_b": 0, "fft_stage_b": 0}
+            or seg_counts != {"stage_a": SH_SHARDS,
+                              "psd_stage_b": SH_SHARDS, "fft_stage_b": 0}
+            or HR.launches):
+        fail("sharded PSDs: launch counts")
+    del xb, x, pairs_b
+
+    # ---- 17. the dry run of every sharded configuration, then K12's times
+    HR.launches = 0
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(SH_SHARDS, device=dev)
+    torch.cuda.synchronize()
+    counts["dryrun"] = HR.launches
+    print(f"dryrun_multichip({SH_SHARDS}) on {card}: OK in "
+          f"{time.perf_counter() - t0:.1f} s, {HR.launches} K12 launches")
+    # configs 1 (4 rings x 3 steps), 2 (2), 4 (1), 5 (2), 6 (2), 7 (1) and
+    # 9 (3 rings x 2 steps on the 2 x 4 mesh)
+    if HR.launches != 12 + 2 + 1 + 2 + 2 + 1 + 6:
+        fail(f"dry run: {HR.launches} K12 launches, expected 26")
+    print("K12 launches per sharded main path:", json.dumps(counts))
+
+    times = {}
+    lib = hasattr(torch, "_foreach_copy_")
+    for name in ("fused_raw_tails_u8", "iq_halo_c64", "audio_halo_f32",
+                 "2d_demod_rows_f32", "ring_1MiB_f32"):
+        rings, halo, with_ctx = cases[name]
+        srcs = [r[(i - 1) % len(r)][-halo:] for r in rings
+                for i in range(len(r))]
+        dsts = [torch.empty_like(s) for s in srcs]
+        pairs_n = len(srcs)
+        nbytes = srcs[0].numel() * srcs[0].element_size()
+        times[name] = {
+            "pairs": pairs_n, "bytes_each": nbytes,
+            "ms": cuda_ms(lambda: HR.exchange(rings, halo)),
+            "plain_ms": cuda_ms(lambda: HR.exchange_plain(rings, halo)),
+            "library_ms": (cuda_ms(lambda: torch._foreach_copy_(dsts, srcs))
+                           if lib else None),
+            "bound_ms": bound(2 * pairs_n * nbytes, 0)[0]}
+    print(f"K12 times on {card} (wrapped form):", json.dumps(times))
+    row = times["fused_raw_tails_u8"]
+    return [kernel_row("ring_halo_exchange", "halo_ring.cu",
+                       "comms_tpu/kernels/halo_rdma.py:84",
+                       sum(counts.values()), k12_err, row["ms"],
+                       row["plain_ms"], 2 * row["pairs"] * row["bytes_each"],
+                       0, row["library_ms"])]
+
+
 def main() -> None:
     import torch
 
@@ -1800,12 +2226,13 @@ def main() -> None:
                                  "panel_reduce_kernel", "fft_rows_kernel",
                                  "psd_partial_kernel", "psd_reduce_kernel",
                                  "stage_a_kernel", "stage_b_psd_kernel",
-                                 "stage_b_fft_kernel"))
+                                 "stage_b_fft_kernel", "halo_ring_kernel"))
 
     rows = [fm_receiver_phases(dev, card)]
     rows += band_monitor_phases(dev, card)
     rows += qpsk_phases(dev, card)
     rows += spectrum_phases(dev, card)
+    rows += sharded_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -211,6 +211,13 @@ def _bind(lib) -> None:
         ptr, ptr,                  # n2 twiddles re, im
         ptr, ptr, ptr,             # yr, yi, cudaStream_t
     ]
+    lib.halo_ring_max_pairs.restype = i32
+    lib.halo_ring_max_pairs.argtypes = []
+    lib.halo_ring_launch.restype = i32
+    lib.halo_ring_launch.argtypes = [
+        ctypes.POINTER(ptr), ctypes.POINTER(ptr),   # host arrays: srcs, dsts
+        i32, i64, ptr,             # pairs, bytes each, cudaStream_t
+    ]
 
 
 def library_path() -> Path:

@@ -176,18 +176,21 @@ def _use_kernel(cfg, re, fits: bool) -> bool:
     return bool(cfg.use_kernel)
 
 
-def _panel_estimates(cfg: QpskRxConfig, re, im):
-    """All block-rate estimates from one set of correlation panels of the
-    raw planes: ``(f_est, t_est, lag[4], shift, p_star)``.  The panels
-    come from the symbol kernel's panel entry on CUDA tensors it accepts,
-    else from ``TimingEstimator.corr_panels``."""
+def _corr_panels(cfg: QpskRxConfig, re, im):
+    """The correlation panels of the raw planes at ``cfg.panel_hw``: the
+    symbol kernel's panel entry on CUDA tensors it accepts, else
+    ``TimingEstimator.corr_panels``."""
     fits = (_QS.kernel_ok(int(re.shape[0]), 1, cfg.sps)
             and 0 < cfg.panel_hw <= 64)
     if _use_kernel(cfg, re, fits):
-        panels = _QS.qpsk_panels(re, im, cfg.panel_hw)
-    else:
-        panels = cfg.timing.corr_panels(re, im, halfwidth=cfg.panel_hw)
-    return _estimates_from_panels(cfg, panels)
+        return _QS.qpsk_panels(re, im, cfg.panel_hw)
+    return cfg.timing.corr_panels(re, im, halfwidth=cfg.panel_hw)
+
+
+def _panel_estimates(cfg: QpskRxConfig, re, im):
+    """All block-rate estimates from one set of correlation panels of the
+    raw planes: ``(f_est, t_est, lag[4], shift, p_star)``."""
+    return _estimates_from_panels(cfg, _corr_panels(cfg, re, im))
 
 
 def _lagrange(t_est):
@@ -342,6 +345,19 @@ def _fourth_power(sr, si):
     return s2r * s2r - s2i * s2i, 2.0 * s2r * s2i
 
 
+def _slope_fit(zr, zi):
+    """Least-squares slope (rad/symbol) of the 4th-power phases of K >= 2
+    consecutive segment sums ``zr + j*zi``, unwrapped across segments."""
+    K = zr.shape[0]
+    ph = torch.atan2(zi, zr)
+    step = torch.remainder(ph[1:] - ph[:-1] + np.pi, 2.0 * np.pi) - np.pi
+    ph = torch.cat([ph[:1], ph[:1] + torch.cumsum(step, 0)])
+    x = torch.arange(K, dtype=ph.dtype, device=ph.device) - (K - 1) / 2.0
+    # sum(x^2) = K (K^2 - 1) / 12 for the centred segment index x
+    return torch.sum(x * ph) * (12.0 / (K * (K * K - 1))) / (
+        4.0 * SLOPE_SEGMENT)
+
+
 def _phase_slope(q4r, q4i):
     """Residual carrier slope (rad/symbol) of symbols whose 4th powers
     are ``q4r + j*q4i``: the 4th-power phase of each ``SLOPE_SEGMENT``-
@@ -352,16 +368,48 @@ def _phase_slope(q4r, q4i):
         return None
     zr = q4r[:K * SLOPE_SEGMENT].reshape(K, SLOPE_SEGMENT).sum(1)
     zi = q4i[:K * SLOPE_SEGMENT].reshape(K, SLOPE_SEGMENT).sum(1)
-    ph = torch.atan2(zi, zr)
-    step = torch.remainder(ph[1:] - ph[:-1] + np.pi, 2.0 * np.pi) - np.pi
-    ph = torch.cat([ph[:1], ph[:1] + torch.cumsum(step, 0)])
-    x = torch.arange(K, dtype=ph.dtype, device=ph.device) - (K - 1) / 2.0
-    # sum(x^2) = K (K^2 - 1) / 12 for the centred segment index x
-    return torch.sum(x * ph) * (12.0 / (K * (K * K - 1))) / (
-        4.0 * SLOPE_SEGMENT)
+    return _slope_fit(zr, zi)
 
 
-def _symbol_tail(sr, si, fphase=None, pfine=None, warm=None):
+def _phase_slope_sharded(q4s, starts, reduce):
+    """:func:`_phase_slope` over a block held as shards: ``q4s`` the
+    per-shard ``(q4r, q4i)`` in shard order, ``starts`` each shard's
+    global first-symbol index.  Each shard sums its symbols per global
+    segment; ``reduce`` adds the per-shard segment sums in shard order;
+    the fit runs once on the global sums.  None for a block of fewer
+    than two segments."""
+    total = sum(int(q[0].shape[0]) for q in q4s)
+    K = total // SLOPE_SEGMENT
+    if K < 2:
+        return None
+    nseg = -(-total // SLOPE_SEGMENT)
+    parts = []
+    for (q4r, q4i), o in zip(q4s, starts):
+        g0, head = divmod(int(o), SLOPE_SEGMENT)
+        n = int(q4r.shape[0])
+        ns = -(-(head + n) // SLOPE_SEGMENT)
+        pad = (head, ns * SLOPE_SEGMENT - head - n)
+        sums = []
+        for q in (q4r, q4i):
+            z = torch.nn.functional.pad(q, pad).reshape(ns, SLOPE_SEGMENT)
+            sums.append(torch.nn.functional.pad(
+                z.sum(1), (g0, nseg - g0 - ns)))
+        parts.append(tuple(sums))
+    zr, zi = reduce(parts)
+    return _slope_fit(zr[:K], zi[:K])
+
+
+def _two_pi_anchor(w, mloc, idx):
+    """``mod(mod(w * mloc, 2 pi) * idx, 2 pi)``: a rotation's phase at a
+    shard's first symbol (global index idx * mloc), reduced mod 2 pi per
+    factor so that no float32 product exceeds ~2 pi * idx."""
+    two_pi = float(np.float32(2.0 * np.pi))
+    return torch.remainder(torch.remainder(w * float(mloc), two_pi)
+                           * float(idx), two_pi)
+
+
+def _symbol_tail(sr, si, fphase=None, pfine=None, warm=None, reduce=None,
+                 sym_offset=None):
     """Symbol-rate tail: fine carrier (4th power), then the Mengali
     5.7.4 phase estimate and the rotation onto +-1+-1j.  Returns
     ``(sym_planes, diag)``.
@@ -380,21 +428,55 @@ def _symbol_tail(sr, si, fphase=None, pfine=None, warm=None):
     phase at the block start (``diag["fphase_next"]`` carries it on);
     ``pfine``/``warm`` the previous phase estimate, against which the new
     one is unwrapped mod pi/2 so the 4-fold ambiguity cannot jump
-    quadrants at block seams (``diag["phase"]`` is the value to carry)."""
-    tr = sr[1:] * sr[:-1] + si[1:] * si[:-1]
-    ti = si[1:] * sr[:-1] - sr[1:] * si[:-1]
-    t4r, t4i = _fourth_power(tr, ti)
-    w_fine = torch.atan2(torch.sum(t4i), torch.sum(t4r)) / 4.0
-    phase0 = 0.0 if fphase is None else fphase
-    sr, si = mixer.derotate_traced_planar(sr, si, w_fine, phase0=phase0)
+    quadrants at block seams (``diag["phase"]`` is the value to carry).
 
-    q4r, q4i = _fourth_power(sr, si)
-    dw = _phase_slope(q4r, q4i)
+    Sharding (``parallel.qpsk_rx_sharded``): ``sr``/``si`` are lists of
+    per-shard symbol planes in shard order, ``reduce`` maps the list of
+    the shards' estimator sums (tuples of tensors) to their global sums
+    (the sums are additive across time shards), and ``sym_offset =
+    (block_symbols, shard_indices)`` anchors every rotation at each
+    shard's global first symbol, so every shard applies the same
+    globally coherent correction; the slope fit runs on the global
+    segment sums.  The symbol planes come back as a list per shard."""
+    sharded = reduce is not None
+    srs, sis = (list(sr), list(si)) if sharded else ([sr], [si])
+    red = reduce if sharded else (lambda parts: parts[0])
+    if sym_offset is not None:
+        mloc, idxs = sym_offset
+    else:
+        mloc, idxs = None, [0] * len(srs)
+
+    def anchored(phase0, w, idx):
+        if mloc is None:
+            return phase0
+        return phase0 + _two_pi_anchor(w, mloc, idx)
+
+    parts = []
+    for a, b in zip(srs, sis):
+        tr = a[1:] * a[:-1] + b[1:] * b[:-1]
+        ti = b[1:] * a[:-1] - a[1:] * b[:-1]
+        t4r, t4i = _fourth_power(tr, ti)
+        parts.append((torch.sum(t4r), torch.sum(t4i)))
+    s4r, s4i = red(parts)
+    w_fine = torch.atan2(s4i, s4r) / 4.0
+    phase0 = 0.0 if fphase is None else fphase
+    rot = [mixer.derotate_traced_planar(a, b, w_fine,
+                                        phase0=anchored(phase0, w_fine, i))
+           for a, b, i in zip(srs, sis, idxs)]
+
+    q4 = [_fourth_power(a, b) for a, b in rot]
+    if sharded:
+        dw = _phase_slope_sharded(
+            q4, [i * (mloc if mloc is not None else 0) for i in idxs], red)
+    else:
+        dw = _phase_slope(*q4[0])
     if dw is not None:
-        sr, si = mixer.derotate_traced_planar(sr, si, dw)
+        rot = [mixer.derotate_traced_planar(a, b, dw, phase0=anchored(
+            0.0, dw, i)) for (a, b), i in zip(rot, idxs)]
         w_fine = w_fine + dw
-        q4r, q4i = _fourth_power(sr, si)
-    p_est = torch.atan2(torch.sum(q4i), torch.sum(q4r)) / 4.0
+        q4 = [_fourth_power(a, b) for a, b in rot]
+    g4r, g4i = red([(torch.sum(qr), torch.sum(qi)) for qr, qi in q4])
+    p_est = torch.atan2(g4i, g4r) / 4.0
     if pfine is not None:
         halfq = float(np.float32(np.pi / 4))
         dp = torch.remainder(p_est - pfine + halfq,
@@ -402,13 +484,14 @@ def _symbol_tail(sr, si, fphase=None, pfine=None, warm=None):
         p_est = torch.where(warm > 0, pfine + dp, p_est)
     th = np.pi / 4 - p_est
     c, s = torch.cos(th), torch.sin(th)
-    out_r = sr * c - si * s
-    out_i = si * c + sr * s
+    outs = [torch.stack([a * c - b * s, b * c + a * s], dim=0)
+            for a, b in rot]
     diag = {"freq_fine": w_fine, "phase": p_est}
     if fphase is not None:
         diag["fphase_next"] = torch.remainder(
-            fphase + w_fine * sr.shape[0], float(np.float32(2.0 * np.pi)))
-    return torch.stack([out_r, out_i], dim=0), diag
+            fphase + w_fine * rot[0][0].shape[0],
+            float(np.float32(2.0 * np.pi)))
+    return (outs if sharded else outs[0]), diag
 
 
 def _mf_kernel_tile_rows(cfg, re) -> int:

@@ -21,11 +21,17 @@ from comms_tpu_torch.models import qpsk_rx_stream as tstream
 from comms_tpu_torch.ops import channelizer as tchan
 from comms_tpu_torch.ops import demodulation as tdem
 from comms_tpu_torch.ops import fir as tfir
+from comms_tpu_torch.parallel import dryrun as tdry
+from comms_tpu_torch.parallel import scaling as tscal
+from comms_tpu_torch.parallel import sharding as tsh
+from comms_tpu_torch.parallel import wideband as twb
+from comms_tpu_torch.parallel import wideband2d as tw2
 from comms_tpu_torch.runtime import StreamRunner
 
 _FM = tfm.FmReceiverConfig(block=2000)
 _BM = tbm.BandMonitorConfig(num_channels=8, block=TBM.step_samples())
 _CH = tchm.ChannelizerConfig(num_channels=8, block=4096)
+_WB = twb.WidebandConfig(tfm.FM_LPF_TAPS, block=8 * 400)
 
 
 def _run_file(tmp_path):
@@ -88,6 +94,20 @@ ENTRY_POINTS = {
     "ops.channelizer.channelizer_init_ctx": (
         tchan.channelizer_init_ctx,
         lambda _: tchan.channelizer_init_ctx(64)),
+    "parallel.sharding.time_mesh": (tsh.time_mesh,
+                                    lambda _: tsh.time_mesh(8)),
+    "parallel.wideband2d.mesh_2d": (tw2.mesh_2d,
+                                    lambda _: tw2.mesh_2d(2, 4)),
+    "parallel.wideband.init_state": (twb.init_state,
+                                     lambda _: twb.init_state(_WB)),
+    "parallel.wideband.state_from_jax": (
+        twb.state_from_jax, lambda _: twb.state_from_jax([np.zeros(3)])),
+    "parallel.scaling.weak_scaling": (
+        tscal.weak_scaling,
+        lambda _: tscal.weak_scaling(tfm.FM_LPF_TAPS, per_shard=400,
+                                     shard_counts=(1,), iters=1, reps=1)),
+    "parallel.dryrun.dryrun_multichip": (
+        tdry.dryrun_multichip, lambda _: tdry.dryrun_multichip(2)),
 }
 
 

@@ -140,5 +140,9 @@ def test_package_imports_no_jax():
                  "models.fm_receiver", "models.channelizer",
                  "models.fm_band_monitor", "models.qpsk_rx",
                  "models.qpsk_rx_stream", "runtime.metrics",
-                 "runtime.stream"):
+                 "runtime.stream", "kernels.halo_ring", "parallel.sharding",
+                 "parallel.dfft", "parallel.wideband",
+                 "parallel.fused_wideband", "parallel.wideband2d",
+                 "parallel.qpsk_rx_sharded", "parallel.scaling",
+                 "parallel.dryrun"):
         assert "comms_tpu_torch." + name in imported
