@@ -533,10 +533,11 @@ def print_ptxas_kernels(build, names) -> None:
         elif current and "Used" in line and any(k in current
                                                 for k in mangled):
             short = next(n for k, n in mangled.items() if k in current)
-            ti = re.search(r"ILi(\d+)E", current)
+            ti = re.search(r"I((?:Li\d+E)+)E", current)
             tmpl = "<true>" if "ILb1E" in current else (
                 "<false>" if "ILb0E" in current else (
-                    f"<{ti.group(1)}>" if ti else ""))
+                    "<" + ", ".join(re.findall(r"\d+", ti.group(1))) + ">"
+                    if ti else ""))
             print(f"ptxas {short}{tmpl}: {line.split(':', 1)[1].strip()}")
             current = None
 
@@ -1688,9 +1689,12 @@ def spectrum_phases(dev, card: str) -> list:
                    "psd_stage_b": BK.launches["psd_stage_b"],
                    "fft_stage_b": BK.launches["fft_stage_b"]}
     print("spectrum main path launches:", json.dumps(main_counts))
+    # the Welch of p_big: one stage A and one PSD stage B (a fixed plan of
+    # launches); fft_large twice: a stage A and an FFT stage B each
     want_counts = {"fft": 1, "psd": 1,
                    "psd_stream": 2 * (SERVE_WARMUP + SERVE_BLOCKS),
-                   "stage_a": 3, "psd_stage_b": 1, "fft_stage_b": 2}
+                   "stage_a": 1 + 2, "psd_stage_b": BK.PSD_STAGE_B_LAUNCHES,
+                   "fft_stage_b": 2}
     if main_counts != want_counts:
         fail(f"spectrum main path launches {main_counts}, expected "
              f"{want_counts}")
@@ -1761,6 +1765,25 @@ def spectrum_phases(dev, card: str) -> list:
     extra["fft_big_2^22x8"] = (
         cuda_ms(lambda: BK.fft_big_planar(rb2, ib2, n12, n22)),
         cuda_ms(lambda: torch.fft.fft(zb2)))
+    # each entry's stage B alone, on a D made beforehand ((re, im) pairs)
+    d1 = torch.stack(BK.stage_a(rb, ib, n1, n2, wF, means)[:2], -1)
+    extra["fft_stage_b_2^20x32"] = (
+        cuda_ms(lambda: BK.fft_stage_b(d1, n1, n2)), None)
+    extra["psd_stage_b_2^20x32"] = (
+        cuda_ms(lambda: BK.psd_stage_b(d1, n1, n2)), None)
+    d2 = torch.stack(BK.stage_a(rb2, ib2, n12, n22)[:2], -1)
+    extra["fft_stage_b_2^22x8"] = (
+        cuda_ms(lambda: BK.fft_stage_b(d2, n12, n22)), None)
+    del d1, d2
+    for tag, (f_ms, b_ms), lib_ms in (
+            ("2^20 x 32", (ms["fft_big"][0],
+                           extra["fft_stage_b_2^20x32"][0]), ms["fft_big"][2]),
+            ("2^22 x 8", (extra["fft_big_2^22x8"][0],
+                          extra["fft_stage_b_2^22x8"][0]),
+             extra["fft_big_2^22x8"][1])):
+        print(f"K10 FFT entry at {tag} on {card}: kernel {f_ms:.4f} ms "
+              f"(stage B alone {b_ms:.4f} ms), torch.fft.fft {lib_ms:.4f} "
+              f"ms, {f_ms / lib_ms:.2f}x")
     extra["spectrogram_256"] = (cuda_ms(lambda: tspec.spectrogram(
         x0, nperseg=256)), cuda_ms(lambda: tspec.spectrogram(
             x0, nperseg=256, use_kernel=False)))
@@ -2143,7 +2166,8 @@ def sharded_phases(dev, card: str) -> list:
         fail(f"sharded PSDs beyond {TOL_PSD} per bin: {e_psd}")
     if (dfft_counts != {"stage_a": 0, "psd_stage_b": 0, "fft_stage_b": 0}
             or seg_counts != {"stage_a": SH_SHARDS,
-                              "psd_stage_b": SH_SHARDS, "fft_stage_b": 0}
+                              "psd_stage_b": SH_SHARDS *
+                              BK.PSD_STAGE_B_LAUNCHES, "fft_stage_b": 0}
             or HR.launches):
         fail("sharded PSDs: launch counts")
     del xb, x, pairs_b
@@ -2226,6 +2250,7 @@ def main() -> None:
                                  "panel_reduce_kernel", "fft_rows_kernel",
                                  "psd_partial_kernel", "psd_reduce_kernel",
                                  "stage_a_kernel", "stage_b_psd_kernel",
+                                 "stage_b_reduce_kernel",
                                  "stage_b_fft_kernel", "halo_ring_kernel"))
 
     rows = [fm_receiver_phases(dev, card)]

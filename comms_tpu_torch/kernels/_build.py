@@ -194,21 +194,20 @@ def _bind(lib) -> None:
     lib.fft_big_stage_a_launch.argtypes = [
         ptr, ptr, i32, i64, i32,   # xr, xi, segments, stride, blocked
         i32, i32, i32, ptr, ptr,   # n1, n2, column tile, window, means
-        ptr, ptr,                  # n1 twiddles re, im
-        ptr, ptr, ptr, ptr,        # high table re, im, low table re, im
-        ptr, ptr, ptr, ptr,        # dr, di, tile sums, cudaStream_t
+        ptr, ptr, ptr,             # n1 twiddles, high and low tables
+        ptr, ptr, ptr,             # D, tile sums, cudaStream_t
     ]
     lib.fft_big_stage_b_psd_launch.restype = i32
     lib.fft_big_stage_b_psd_launch.argtypes = [
-        ptr, ptr, i32, i32, i32,   # dr, di, segments, n1, n2
-        ptr, ptr,                  # n2 twiddles re, im
+        ptr, i32, i32, i32,        # D, segments, n1, n2
+        i32, i32, ptr,             # D's tile width, segments/block, n2 table
         ptr, ptr, i32, ptr,        # sparse bins, W there, count, means
-        ptr, ptr,                  # out [N], cudaStream_t
+        ptr, ptr, ptr,             # partial sums, out [N], cudaStream_t
     ]
     lib.fft_big_stage_b_fft_launch.restype = i32
     lib.fft_big_stage_b_fft_launch.argtypes = [
-        ptr, ptr, i32, i32, i32,   # dr, di, segments, n1, n2
-        ptr, ptr,                  # n2 twiddles re, im
+        ptr, i32, i32, i32,        # D, segments, n1, n2
+        i32, i32, ptr,             # D's tile width, rows per block, n2 table
         ptr, ptr, ptr,             # yr, yi, cudaStream_t
     ]
     lib.halo_ring_max_pairs.restype = i32

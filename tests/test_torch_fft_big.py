@@ -186,6 +186,221 @@ def test_stage_a_plain_composes_to_the_fft():
     # the N-point FFT (the reference the stage is held to on the card).
     n1, n2 = 256, 256
     x = _cx(np.random.default_rng(12), (1, n1 * n2))
-    d = TFB.stage_a_plain(_t(x.real), _t(x.imag), n1, n2)
+    d = TFB.d_rows(TFB.stage_a_plain(_t(x.real), _t(x.imag), n1, n2), n1,
+                   n2)
     X = torch.fft.fft(d, dim=2).transpose(1, 2).reshape(1, -1).numpy()
     assert _relmax(X, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-5
+
+
+@pytest.mark.parametrize("n1, n2", [(256, 512), (1024, 256), (2048, 256)])
+def test_stage_a_layout_and_sums_contract(n1, n2):
+    # D is tile-blocked [b, n2/ct, n1, ct] with ct = _col_tile(n1); the
+    # sparse-demean sums are [b, n2/ct, 2] and add up to each segment's
+    # sum (psd_big_planar's sums.sum(dim=1)).
+    b = 2
+    x = _cx(np.random.default_rng(n1 + n2), (b, n1 * n2), offset=0.3)
+    ct = TFB._col_tile(n1)
+    dr, di, sums = TFB.stage_a(_t(x.real), _t(x.imag), n1, n2,
+                               emit_sums=True)
+    assert ct * n1 in (8192, 16384) and n2 % ct == 0
+    assert dr.shape == di.shape == (b, n2 // ct, n1, ct)
+    assert sums.shape == (b, n2 // ct, 2)
+    tot = sums.sum(dim=1).numpy()
+    want = np.stack([x.real.sum(1), x.imag.sum(1)], -1)
+    assert np.max(np.abs(tot - want)) < 1e-6 * n1 * n2
+    d = torch.complex(dr, di)
+    rows = TFB.d_rows(d, n1, n2)
+    assert torch.equal(rows[:, :, :ct], d[:, 0])
+    col = np.fft.fft(x.astype(np.complex128).reshape(b, n1, n2), axis=1)
+    k1, i2 = np.arange(n1)[:, None], np.arange(n2)[None, :]
+    col = col * np.exp(-2j * np.pi * ((k1 * i2) % (n1 * n2)) / (n1 * n2))
+    assert _relmax(rows.numpy(), col) < 1e-5
+
+
+# ---- a host copy of the register FFT's plan (csrc/fft_reg.cuh) and of
+# fft_big.cu's lane maps, kept by hand beside the C++: what the CPU can
+# check of the kernels' index arithmetic.
+
+_POINTS = 16       # fft_reg.cuh kPoints (:64)
+_PAD_SHIFT = 4     # fft_reg.cuh kPadShift (:65)
+
+
+def reg_fft_plan(n: int):
+    """``[(radix, Ns), ...]``: the passes of fft_reg.cuh's ``fft_reg``
+    (:271-289; the plan of :16-24) for an n-point transform: radices 16,
+    16, then n / 256 above 256 points; Ns the product of the earlier
+    radices."""
+    assert n in (256, 512, 1024, 2048)
+    plan, ns = [], 1
+    for r in [16, 16] + ([n // 256] if n > 256 else []):
+        plan.append((r, ns))
+        ns *= r
+    return plan
+
+
+def _pad(a):
+    """fft_reg.cuh ``pad`` (:67)."""
+    return a + (a >> _PAD_SHIFT)
+
+
+def exchange_ld(n: int, stage: str, threads: int) -> int:
+    """Stride in float2 between two transforms' exchange regions in a
+    block of ``threads``: stage ``"a"`` (lanes over columns, fft_big.cu
+    ``a_ld``) or ``"b"`` (16 lanes over one row's points, ``b_ld``)."""
+    if stage == "a":
+        ct = threads * _POINTS // n
+        return _pad(n) + 16 // min(ct, 16)
+    return _pad(n)
+
+
+def _lane_map(n: int, stage: str, threads: int):
+    """Each thread's (region, t) as fft_big.cu assigns them
+    (``stage_a_kernel``'s c, t and ``RowLanes``' r, t)."""
+    tid = np.arange(threads)
+    T = n // _POINTS
+    if stage == "a":
+        ct = threads // T
+        return tid % ct, tid // ct
+    rows = threads // T
+    return (tid >> 4) % rows, (tid & 15) + 16 * (tid // (16 * rows))
+
+
+def _exchange_addresses(n: int, t):
+    """Per exchange of fft_reg.cuh (``exchange``, :219-243): the padded
+    in-region addresses of each store instruction and of each load, as
+    two arrays [instr, threads]."""
+    T = n // _POINTS
+    out = []
+    for R, ns in reg_fft_plan(n)[:-1]:
+        M = _POINTS // R
+        stores = []
+        for m in range(M):
+            j = t + m * T
+            o = (j // ns) * ns * R + j % ns
+            stores += [_pad(o + r * ns) for r in range(R)]
+        loads = [_pad(t + T * q) for q in range(_POINTS)]
+        out.append((np.stack(stores), np.stack(loads)))
+    return out
+
+
+def exchange_bank_ways(n: int, stage: str, threads: int) -> int:
+    """The most distinct 8-byte float2 that one half-warp's store or load
+    of an exchange puts into one pair of the 32 shared-memory banks (16
+    pairs), over every warp of a block of ``threads`` (1 means
+    conflict-free: a warp's 8-byte access is served as two half-warps)."""
+    region, t = _lane_map(n, stage, threads)
+    base = region * exchange_ld(n, stage, threads)
+    worst = 1
+    for stores, loads in _exchange_addresses(n, t):
+        for instr in np.concatenate([stores, loads]):
+            for half in (base + instr).reshape(-1, 16):
+                words = np.unique(half)
+                worst = max(worst, int(np.bincount(words % 16).max()))
+    return worst
+
+
+def reg_fft_replay(x: torch.Tensor) -> torch.Tensor:
+    """Run fft_reg.cuh's plan on complex [b, n] with torch: each thread t's
+    points t + T q, each pass's twiddles from the float32 W_n^k table at
+    the kernel's integer indices (``pass``, :177-215), its radix-R DFTs,
+    and the exchanges through a padded buffer at the Stockham positions
+    (``exchange``, :219-243; the last pass in natural order, ``natural``,
+    :245-267).  Returns the natural-order outputs."""
+    b, n = x.shape
+    T = n // _POINTS
+    t = torch.arange(T)
+    slots = t[:, None] + T * torch.arange(_POINTS)[None, :]      # [T, 16]
+    table = torch.from_numpy(np.exp((-2j * np.pi / n) * np.arange(n))
+                             .astype(np.complex64))
+    v = x[:, slots]                                              # [b, T, 16]
+    plan = reg_fft_plan(n)
+    for p, (R, ns) in enumerate(plan):
+        M = _POINTS // R
+        m = torch.arange(M)
+        r = torch.arange(R)
+        pos = m[:, None] + r[None, :] * M                        # [M, R]
+        j = t[:, None] + m[None, :] * T                          # [T, M]
+        e = ((j % ns) * (n // (ns * R)))[:, :, None] * r         # [T, M, R]
+        u = v[:, :, pos] * table[e]                              # [b, T, M, R]
+        F = torch.from_numpy(np.exp((-2j * np.pi / R) * np.outer(
+            np.arange(R), np.arange(R))).astype(np.complex64))
+        y = u @ F.T                                              # output r
+        if p == len(plan) - 1:
+            v = torch.empty_like(v)
+            v[:, :, pos] = y
+            break
+        addr = ((j // ns) * ns * R + j % ns)[:, :, None] + r * ns
+        buf = torch.zeros((b, _pad(n)), dtype=x.dtype)
+        a = _pad(addr).reshape(-1)
+        assert len(torch.unique(a)) == n, "exchange positions collide"
+        buf[:, a] = y.reshape(b, -1)
+        v = buf[:, _pad(slots)]
+    X = torch.empty_like(x)
+    X[:, slots] = v
+    return X
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048])
+def test_register_fft_plan_replays_to_the_fft(n):
+    # fft_reg.cuh's pass plan, twiddle indices and padded exchanges, run
+    # with torch on the CPU, give the n-point FFT.
+    plan = reg_fft_plan(n)
+    assert [r for r, _ in plan] == [16, 16] + ([n // 256] if n > 256 else [])
+    assert int(np.prod([r for r, _ in plan])) == n
+    x = _cx(np.random.default_rng(n), (3, n))
+    got = reg_fft_replay(torch.from_numpy(x)).numpy()
+    assert _relmax(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-5
+
+
+@pytest.mark.parametrize("stage", ["a", "b"])
+@pytest.mark.parametrize("threads", [512, 1024])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048])
+def test_register_fft_exchange_is_bank_conflict_free(n, threads, stage):
+    # Every warp's store and load of every exchange, with fft_big.cu's
+    # lane maps and region strides, hits each shared-memory bank once.
+    assert exchange_bank_ways(n, stage, threads) == 1
+
+
+@pytest.mark.parametrize("n1, n2", [(512, 256), (256, 1024)])
+def test_stage_b_entries_on_stage_a_compose_to_the_entries(n1, n2):
+    # fft_stage_b / psd_stage_b on a D made beforehand (the stage B timed
+    # alone on the card) give the FFT and PSD entries' results.
+    b, N = 2, n1 * n2
+    x = _cx(np.random.default_rng(n1 + 3 * n2), (b, N), offset=0.2)
+    re, im = _t(x.real), _t(x.imag)
+    d, _ = TFB._stage_a_d(re, im, n1, n2)
+    dr, di, _ = TFB.stage_a(re, im, n1, n2)
+    assert torch.equal(torch.complex(dr, di), torch.view_as_complex(d))
+    yr, yi = TFB.fft_stage_b(d, n1, n2)
+    ref = np.fft.fft(x.astype(np.complex128), axis=1)
+    assert _relmax(yr.numpy() + 1j * yi.numpy(), ref) < 1e-5
+    assert _relmax(TFB.psd_stage_b(d, n1, n2).numpy(),
+                   (np.abs(ref) ** 2).sum(0)) < 1e-5
+    w = jspec.hann(N).astype(np.float32)
+    d, sums = TFB._stage_a_d(re, im, n1, n2, window=w, emit_sums=True)
+    got = TFB.psd_stage_b(d, n1, n2, TFB.sparse_window_bins(w, n1, n2), sums)
+    want = TFB.psd_big_plain(re, im, n1, n2, w, sparse_demean=True)
+    assert _relmax(got.numpy(), want.numpy()) < 2e-5
+
+
+@pytest.mark.parametrize("entry", ["fft", "psd"])
+def test_stage_b_entries_reject_d_in_another_layout(entry):
+    # The stage B entries take only stage A's tile-blocked float32 (re, im)
+    # pairs: D as rows [b, n1, n2], complex, or split planes raise.
+    n1, n2 = 1024, 256
+    x = _cx(np.random.default_rng(5), (1, n1 * n2))
+    d, sums = TFB._stage_a_d(_t(x.real), _t(x.imag), n1, n2, emit_sums=True)
+    call = {"fft": lambda dd: TFB.fft_stage_b(dd, n1, n2),
+            "psd": lambda dd: TFB.psd_stage_b(dd, n1, n2)}[entry]
+    rows = torch.view_as_real(TFB.d_rows(torch.view_as_complex(d), n1, n2))
+    for bad in (rows, torch.view_as_complex(d), d[..., 0], d.double(),
+                d.transpose(1, 2)):
+        with pytest.raises(ValueError, match="stage A's D"):
+            call(bad)
+    with pytest.raises(ValueError, match="supported"):
+        TFB.fft_stage_b(d, n1, 4096)
+    if entry == "psd":
+        w = jspec.hann(n1 * n2)
+        with pytest.raises(ValueError, match="sums"):
+            TFB.psd_stage_b(d, n1, n2, TFB.sparse_window_bins(w, n1, n2),
+                            sums[:, :1])

@@ -112,8 +112,11 @@ def _layouts(re, im, n1, n2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n1, n2, b", [(256, 512, 3), (1024, 256, 2),
-                                       (2048, 2048, 1)])
+@pytest.mark.parametrize("n1, n2, b", [
+    (256, 512, 3), (1024, 256, 2), (2048, 2048, 1),
+    # every factor as n1 and as n2, one and three segments
+    (256, 2048, 1), (256, 2048, 3), (512, 1024, 1), (512, 1024, 3),
+    (1024, 512, 1), (1024, 512, 3), (2048, 256, 1), (2048, 256, 3)])
 def test_fft_big_stages_match_plain(n1, n2, b):
     _card()
     N = n1 * n2
@@ -132,11 +135,16 @@ def test_fft_big_stages_match_plain(n1, n2, b):
 
     before = dict(TFB.launches)
     psd = TFB.psd_big_planar(re, im, n1, n2, window=w, means=means)
+    again = TFB.psd_big_planar(re, im, n1, n2, window=w, means=means)
     yr, yi = TFB.fft_big_planar(re, im, n1, n2)
     torch.cuda.synchronize()
-    assert TFB.launches["stage_a"] == before["stage_a"] + 2
-    assert TFB.launches["psd_stage_b"] == before["psd_stage_b"] + 1
+    # one stage A per entry call; the PSD's stage B is a fixed plan of
+    # launches per call
+    assert TFB.launches["stage_a"] == before["stage_a"] + 3
+    assert (TFB.launches["psd_stage_b"]
+            == before["psd_stage_b"] + 2 * TFB.PSD_STAGE_B_LAUNCHES)
     assert TFB.launches["fft_stage_b"] == before["fft_stage_b"] + 1
+    assert torch.equal(psd, again)             # fixed summation order
     assert _rel(psd, TFB.psd_big_plain(re, im, n1, n2, w, means)) < TOL_PSD
     wr, wi = TFB.fft_big_plain(re, im, n1, n2)
     assert _rel(torch.complex(yr, yi), torch.complex(wr, wi)) < TOL_FFT
