@@ -60,7 +60,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    of one served block;
 11. spectrum kernels against their plain versions at full width, on a
    white-noise capture: the FFT kernel at 16,777,216 samples as rows of
-   1024, 4096, 8192 and 16384 (scale 1/sqrt(n), against a float64 oracle
+   every size, 256..16384 (scale 1/sqrt(n), against a float64 oracle
    on a subset of rows, the plane-swap step twice an exact bin reversal)
    and the 256-point spectrogram; the PSD kernel's stream entry (n =
    1024) and its row entry through ``welch_psd``, each bin against that
@@ -75,6 +75,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``fft_large`` shapes; exact launch counts per kernel entry; a
    ``torch.profiler`` split of one served block;
 13. spectrum kernel, plain-version and library (``torch.fft.fft``) times;
+   the FFT kernel at every size beside its plain version,
+   ``torch.fft.fft`` of a complex tensor packed beforehand and its bound;
+   a ``torch.profiler`` split of the 256-point spectrogram, kernel route
+   against tensor route;
 14. every kernel table row carries its bound (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s, from this run's shapes) and, where
    one PyTorch call computes the same function (``F.conv1d`` for the FIR
@@ -175,12 +179,14 @@ TOL_STREAM_SYM = 2e-3   # fast vs fused stream step (the JAX test's)
 TOL_STREAM_STATE = 1e-3
 
 # FFT and spectrum monitoring: the Welch serving block and FFT rows of
-# bench.py:796-940 (16,777,216 samples, 1024 bins), a capture with three
-# tones at known bins of a 1024-point FFT (amplitudes 1, 0.5, 0.25) plus
-# noise of sigma 0.01, and the wideband PSD of bench.py:628-670 (2^20
-# bins x 32 segments) with the 2^22 x 8 edge of the four-step stages.
+# bench.py:796-940 (16,777,216 samples, 1024 bins), the FFT kernel's
+# sizes, a capture with three tones at known bins of a 1024-point FFT
+# (amplitudes 1, 0.5, 0.25) plus noise of sigma 0.01, and the wideband
+# PSD of bench.py:628-670 (2^20 bins x 32 segments) with the 2^22 x 8
+# edge of the four-step stages.
 SP_N = 16_777_216
 SP_NFFT = 1024
+SP_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 SP_TONES = (101, 300, 777)
 SP_NOISE = 0.01
 BIG = ((1 << 20, 32), (1 << 22, 8))
@@ -1514,7 +1520,7 @@ def spectrum_phases(dev, card: str) -> list:
     # a float64 oracle on a subset of rows and against the plain version;
     # the plane-swap step twice is an exact bin reversal
     abs_err = {}
-    for n in (1024, 4096, 8192, 16384):
+    for n in SP_SIZES:
         rows = SP_N // n
         r2, i2 = nr.view(rows, n), ni.view(rows, n)
         s = 1.0 / np.sqrt(n)
@@ -1714,6 +1720,9 @@ def spectrum_phases(dev, card: str) -> list:
                        f"{SERVE_BLOCKS} served Welch blocks ({name})")
 
     # ---- 13. times at the main path's shapes
+    def lg(v):
+        return float(np.log2(v))
+
     r1k, i1k = re.view(SP_N // SP_NFFT, SP_NFFT), im.view(-1, SP_NFFT)
     z1k = torch.complex(r1k, i1k)
     s1k = 1.0 / np.sqrt(SP_NFFT)
@@ -1744,12 +1753,24 @@ def spectrum_phases(dev, card: str) -> list:
         print(f"{name} on {card}: kernel {ms[name][0]:.4f} ms, plain "
               f"{ms[name][1]:.4f} ms, library "
               f"{'-' if lib is None else f'{ms[name][2]:.4f} ms'}")
+    # K6 at every size beside its plain version, torch.fft.fft of a complex
+    # tensor packed beforehand (the FFT alone, the library yardstick),
+    # unscaled, and its bound: 16 bytes a sample, 5 log2(n) flops
+    k6 = {}
+    for n in SP_SIZES:
+        rr, ii = nr.view(-1, n), ni.view(-1, n)
+        z = torch.complex(rr, ii)
+        k_ms = cuda_ms(lambda: SK.fft_planar(rr, ii, n))
+        l_ms = cuda_ms(lambda: torch.fft.fft(z))
+        b_ms = bound(16 * SP_N, 5 * SP_N * lg(n))[0]
+        k6[n] = {"kernel_ms": k_ms,
+                 "plain_ms": cuda_ms(lambda: SK.fft_plain(rr, ii)),
+                 "torch_fft_ms": l_ms, "bound_ms": b_ms,
+                 "kernel_over_torch_fft": k_ms / l_ms,
+                 "bound_over_kernel": b_ms / k_ms}
+        del z
+    print(f"K6 at {SP_N} samples by row size on {card}:", json.dumps(k6))
     extra = {}
-    for n in (4096, 8192, 16384):
-        rr, ii = re.view(-1, n), im.view(-1, n)
-        extra[f"fft_planar_{n}"] = (
-            cuda_ms(lambda: SK.fft_planar(rr, ii, n)),
-            cuda_ms(lambda: torch.fft.fft(torch.complex(rr, ii))))
     extra["welch_numerator_2^20x32"] = (
         cuda_ms(lambda: BK.welch_numerator(rb, ib, wF)), None)
     for k, (r, i) in {"3d": (rb.view(B, n1, n2), ib.view(B, n1, n2)),
@@ -1789,20 +1810,21 @@ def spectrum_phases(dev, card: str) -> list:
             x0, nperseg=256, use_kernel=False)))
     print(f"more spectrum times on {card} (kernel ms, library or tensor "
           f"route ms):", json.dumps(extra))
+    for route, kern in (("kernel", True), ("tensor", False)):
+        profile_served(lambda: tspec.spectrogram(x0, nperseg=256,
+                                                 use_kernel=kern), card,
+                       f"the 256-point spectrogram ({route} route)")
 
     # ---- 14. kernel table rows: bytes and operations from the shapes
     # (complex samples 8 bytes; an n-point FFT 5 n log2(n) flops; the
     # window, demean, |.|^2 and sums ~10 flops a sample)
-    def lg(v):
-        return float(np.log2(v))
 
     nseg = 2 * SP_N // SP_NFFT - 1
     welch_flops = nseg * SP_NFFT * (5 * lg(SP_NFFT) + 10)
     N = F * B
     rows = [
         ("fft_planar", "fft.cu", "comms_tpu/kernels/fft_pallas.py:373",
-         main_counts["fft"], max(abs_err[n] for n in (1024, 4096, 8192,
-                                                      16384)),
+         main_counts["fft"], max(abs_err[n] for n in SP_SIZES),
          16 * SP_N, SP_N * (5 * lg(SP_NFFT) + 1)),
         ("psd_planar", "psd.cu", "comms_tpu/kernels/fft_pallas.py:528",
          main_counts["psd"], abs_err["psd_rows"], 8 * SP_N + 8 * SP_NFFT,

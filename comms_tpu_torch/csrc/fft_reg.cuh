@@ -1,34 +1,39 @@
-// The register-resident FFT of K10 (fft_big.cu): forward complex FFTs of
-// n = 256, 512, 1024 or 2048 points, float32, each thread holding 16
+// The register-resident FFT that K6 (fft.cu, batched rows) and K10
+// (fft_big.cu, the four-step stages) share: forward complex FFTs of
+// n = 256 .. 16384 points (powers of two), float32, each thread holding 16
 // points of one transform in registers.
 //
-// fft_reg<N>(vr, vi, t, x, tw) transforms one N-point sequence held by
-// the T = N / 16 threads t = 0 .. T-1 that call it with the same exchange
-// region x (complex points as float2).  Every thread of the block calls it
-// (it holds __syncthreads), possibly for many transforms at once, each
-// with its own region.
+// fft_reg<N, kPowers>(vr, vi, t, x, tw) transforms one N-point sequence
+// held by the T = N / 16 threads t = 0 .. T-1 that call it with the same
+// exchange region x (complex points as float2); kPowers picks the twiddle
+// scheme (see "Twiddles").  Every thread of the block calls it (it holds
+// __syncthreads), possibly for many transforms at once, each with its own
+// region.
 //
 // Which thread holds which point.  Before the call thread t holds, in
 // vr[q], vi[q] (q = 0 .. 15), the input points x[t + T q]; after it,
 // the outputs X[t + T q].  So a caller loads and stores points at
 // stride T with consecutive threads on consecutive points.
 //
-// Passes (Stockham autosort, Govindaraju et al., SC 2008): radices
-// 16, 16 and then N / 256 (none at N = 256; 2, 4 or 8 otherwise), so
-// two passes at 256 points and three at 512..2048.  A pass with
-// sub-transform size Ns (the product of the earlier radices) and radix R
-// has N / R butterflies j; butterfly j takes its inputs at j + r N / R
-// (r < R), multiplies input r by W_{Ns R}^{(j mod Ns) r}, and puts output
-// r at (j / Ns) Ns R + (j mod Ns) + r Ns.  Thread t does the 16 / R
-// butterflies j = t + m T (m < 16 / R): their inputs j + r N / R =
+// Passes (Stockham autosort, Govindaraju et al., SC 2008): radix 16 while
+// 16 or more points remain per sub-transform, then the rest:
+//   N = 256            16, 16                 (one exchange)
+//   N = 512 .. 2048    16, 16, N / 256        (two)
+//   N = 4096           16, 16, 16             (two)
+//   N = 8192, 16384    16, 16, 16, N / 4096   (three)
+// A pass with sub-transform size Ns (the product of the earlier radices)
+// and radix R has N / R butterflies j; butterfly j takes its inputs at
+// j + r N / R (r < R), multiplies input r by W_{Ns R}^{(j mod Ns) r}, and
+// puts output r at (j / Ns) Ns R + (j mod Ns) + r Ns.  Thread t does the
+// 16 / R butterflies j = t + m T (m < 16 / R): their inputs j + r N / R =
 // t + T (m + r 16 / R) are exactly its points x[t + T q], in every pass.
 // So a pass reads only the thread's own registers.  Between passes the
 // outputs go through shared memory once: each thread writes its
-// outputs at the Stockham positions, the block synchronises, each thread
-// reads back the points t + T q, and the block synchronises again (two
-// exchanges at 512..2048 points, one at 256).  The last pass has
-// Ns R = N, so its output r of butterfly m is X[t + T (m + r 16 / R)]:
-// it stays in the registers, in natural order, with no exchange.
+// outputs at the Stockham positions, the block synchronises, each
+// thread reads back the points t + T q, and the block synchronises again.
+// The last pass has Ns R = N, so its output r of butterfly m is
+// X[t + T (m + r 16 / R)]: it stays in the registers, in natural order,
+// with no exchange.
 //
 // Inside a pass the R-point DFT runs in registers: radix 16 as 4 x 4,
 // radix 8 as 2 x 4 (decimation in frequency), radix 4 and 2 directly,
@@ -37,10 +42,19 @@
 //
 // Twiddles: W_N^k = e^{-2 pi i k / N}, k < N, a host table computed in
 // float64 at the integer index k and rounded to float32 (tw, float2 (re,
-// im) pairs, so that each twiddle is one 8-byte load).  The
-// pass twiddle W_{Ns R}^{(j mod Ns) r} is the entry (j mod Ns) r N /
-// (Ns R) < N: an integer index, never an angle formed as a float
-// product.
+// im) pairs, so that each twiddle is one 8-byte load).  The pass twiddle
+// W_{Ns R}^{(j mod Ns) r} is W_N^{e r}, e = (j mod Ns) N / (Ns R): an
+// integer index, never an angle formed as a float product.  By default
+// (K10) each is the table entry e r < N.  With kPowers (K6) a thread
+// loads one entry per butterfly, w = W_N^e, and forms w^2 .. w^15 by
+// running products (w^r is r - 1 float32 products of one rounded entry),
+// and the last pass loads W_N^{t r} (r < R) and multiplies it by the
+// exact 16th root W_16^{m r}.  That saves loads where they cost: the
+// Ns = 16 pass's 15 loads a thread each touch 16 cache lines a warp, and
+// above 2048 points the tables (32..128 KB) do not stay in L1.  On the
+// H100 K6's outputs stay within 6e-7 of a float64 FFT, relative to their
+// largest magnitude, the order of a table entry per twiddle
+// (chip_smoke.py).
 //
 // Bank conflicts.  The exchanges move each point as one 8-byte float2,
 // which a warp serves as two half-warps of 16 lanes; a half-warp is
@@ -49,11 +63,12 @@
 // regions lie ld float2 apart, and the caller chooses ld so that no
 // half-warp's store or load of an exchange hits one bank twice:
 // ld = pad(N) + 16 / min(columns, 16) when consecutive lanes hold
-// consecutive transforms (stage A: columns of the tile), and ld =
-// pad(N) when 16 consecutive lanes hold consecutive t of one transform
-// (stage B).  tests/test_torch_fft_big.py keeps a host copy of the
-// plan, the padding and both lane maps, and replays them on the CPU; a
-// change here is made there too.
+// consecutive transforms (K10's stage A: columns of the tile), and ld =
+// pad(N) when 16 consecutive lanes hold 16 consecutive t, a multiple of
+// 16 first, of one transform (K10's stage B, K6).
+// tests/test_torch_fft_big.py keeps a host copy of the plan, the padding,
+// both twiddle schemes and the three lane maps, and replays them on the
+// CPU; a change here is made there too.
 
 #pragma once
 
@@ -172,18 +187,42 @@ __device__ __forceinline__ constexpr int out_pos(int r) {
 
 // Radix-R butterflies of one pass on the thread's 16 points: butterfly m
 // (m < 16 / R) holds inputs r at v[m + r 16 / R].  Multiplies input r
-// by the table entry (j mod Ns) r N / (Ns R), j = t + m T, then runs the
-// DFT in place.
-template <int N, int R, int NS>
+// by W_N^{e r}, e = (j mod Ns) N / (Ns R), j = t + m T, then runs the DFT
+// in place.  The twiddles (see "Twiddles" above): with kPowers false, the
+// table entry e r for each; with kPowers true, a pass of one butterfly a
+// thread (R = 16) loads w = W_N^e and takes w^r by running products, and
+// the last pass (Ns R = N, so j = t + m T < Ns) loads W_N^{t r} and
+// multiplies it by the constant W_16^{m r} = W_N^{m T r}.
+template <int N, int R, int NS, bool kPowers>
 __device__ __forceinline__ void pass(float (&vr)[kPoints],
                                      float (&vi)[kPoints], int t,
                                      const float2* __restrict__ tw) {
   constexpr int T = N / kPoints;
   constexpr int M = kPoints / R;
   constexpr int unit = N / (NS * R);
+  if constexpr (NS > 1 && kPowers && M == 1) {
+    const float2 w = __ldg(tw + (t & (NS - 1)) * unit);
+    float pr = w.x, pi = w.y;
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    if constexpr (NS > 1) {
+    for (int r = 1; r < R; ++r) {
+      cmul(vr[r], vi[r], pr, pi);
+      if (r + 1 < R) cmul(pr, pi, w.x, w.y);
+    }
+  } else if constexpr (NS > 1 && kPowers) {
+    static_assert(NS * R == N, "M > 1 only in the last pass");
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      const float2 a = __ldg(tw + t * r);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        float wr = a.x, wi = a.y;
+        if ((m * r) % 16) cmul(wr, wi, w16r(m * r), w16i(m * r));
+        cmul(vr[m + r * M], vi[m + r * M], wr, wi);
+      }
+    }
+  } else if constexpr (NS > 1) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
       const int e = ((t + m * T) & (NS - 1)) * unit;
 #pragma unroll
       for (int r = 1; r < R; ++r) {
@@ -268,22 +307,32 @@ __device__ __forceinline__ void natural(float (&vr)[kPoints],
 
 }  // namespace fft_reg_detail
 
-template <int N>
+template <int N, bool kPowers = false>
 __device__ __forceinline__ void fft_reg(float (&vr)[fft_reg_detail::kPoints],
                                         float (&vi)[fft_reg_detail::kPoints],
                                         int t, float2* x,
                                         const float2* __restrict__ tw) {
   using namespace fft_reg_detail;
-  static_assert(N == 256 || N == 512 || N == 1024 || N == 2048,
-                "fft_reg: 256..2048 points");
-  pass<N, 16, 1>(vr, vi, t, tw);
+  static_assert(N >= 256 && N <= 16384 && (N & (N - 1)) == 0,
+                "fft_reg: 256..16384 points");
+  pass<N, 16, 1, kPowers>(vr, vi, t, tw);
   exchange<N, 16, 1>(vr, vi, t, x);
-  pass<N, 16, 16>(vr, vi, t, tw);
+  pass<N, 16, 16, kPowers>(vr, vi, t, tw);
   if constexpr (N == 256) {
     natural<16>(vr, vi);
+  } else if constexpr (N <= 2048) {
+    exchange<N, 16, 16>(vr, vi, t, x);
+    pass<N, N / 256, 256, kPowers>(vr, vi, t, tw);
+    natural<N / 256>(vr, vi);
   } else {
     exchange<N, 16, 16>(vr, vi, t, x);
-    pass<N, N / 256, 256>(vr, vi, t, tw);
-    natural<N / 256>(vr, vi);
+    pass<N, 16, 256, kPowers>(vr, vi, t, tw);
+    if constexpr (N == 4096) {
+      natural<16>(vr, vi);
+    } else {
+      exchange<N, 16, 256>(vr, vi, t, x);
+      pass<N, N / 4096, 4096, kPowers>(vr, vi, t, tw);
+      natural<N / 4096>(vr, vi);
+    }
   }
 }

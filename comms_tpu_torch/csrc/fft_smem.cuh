@@ -1,5 +1,5 @@
-// The shared-memory FFT that the FFT kernels (fft.cu: K6, psd.cu: K7,
-// fft_big.cu: K10) share.
+// The shared-memory FFT of the Welch kernel (psd.cu: K7).  K6 (fft.cu)
+// and K10 (fft_big.cu) run on the register FFT of fft_reg.cuh.
 //
 // fft_smem<KPT>() computes B forward complex FFTs of n points each
 // (n = 2^log2n, 4 <= n <= 16384) on planar float32 data in shared memory:

@@ -178,8 +178,8 @@ def _bind(lib) -> None:
     f32 = ctypes.c_float
     lib.fft_launch.restype = i32
     lib.fft_launch.argtypes = [
-        ptr, ptr, i64, i32,        # xr, xi, rows, n
-        ptr, ptr, f32,             # twiddles re, im, scale
+        ptr, ptr, i64, i64, i32,   # xr, xi, rows, row stride, n
+        ptr, f32,                  # twiddles (re, im) pairs, scale
         ptr, ptr, ptr,             # yr, yi, cudaStream_t
     ]
     lib.psd_launch.restype = i32

@@ -5,10 +5,16 @@ and their plain versions.
   ``comms_tpu/kernels/fft_pallas.py::fft_pallas_planar`` (and
   :func:`fft_complex` its complex shim ``fft_pallas``): one n-point FFT
   per row of float32 re/im planes ``[rows, n]``, n = 256..16384 (powers
-  of two), natural bin order, times ``scale``.  The inverse is the plane
-  swap, ``ifft(z) = swap(fft(swap(z))) / n``, as the JAX callers use it.
+  of two), natural bin order, times ``scale``.  Each row runs on the
+  register FFT of ``csrc/fft_reg.cuh`` (shared with K10): 16 points a
+  thread loaded straight from the planes, radix-16 passes with one to
+  three shared-memory exchanges, and the outputs stored straight from
+  registers; row-strided views are read in place.  The inverse is the
+  plane swap, ``ifft(z) = swap(fft(swap(z))) / n``, as the JAX callers
+  use it.
 * :func:`psd_planar` and :func:`psd_stream_planar` (``csrc/psd.cu``, one
-  kernel with two entries) replace ``psd_pallas_planar`` and
+  kernel with two entries, on the shared-memory FFT of
+  ``csrc/fft_smem.cuh``) replace ``psd_pallas_planar`` and
   ``psd_stream_pallas_planar``: window * (x - mean) -> FFT -> |.|^2
   summed over segment rows, or over the 2N/n - 1 segments at 50% overlap
   of a flat stream.  Both return ``acc[n]`` in natural bin order, summed
@@ -18,7 +24,8 @@ Both ``precision`` values of the TPU kernels ("split_bf16", its bf16x3
 DFT matmuls, and "highest") compute in float32 on the CUDA cores here;
 any other value raises.  The twiddle tables W_n^k are made on the host in
 float64 from integer indices and kept on the card
-(:func:`_build.device_constant`).
+(:func:`_build.device_constant`): planar for K7 (:func:`twiddles`), as
+(re, im) pairs for the register FFT (:func:`pass_twiddles`).
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions for CPU tensors; any other device raises.  ``launches`` counts,
@@ -37,7 +44,7 @@ from comms_tpu_torch.kernels import _build
 
 __all__ = ["fft_planar", "fft_complex", "psd_planar", "psd_stream_planar",
            "fft_plain", "psd_plain", "psd_stream_plain", "rows_per_step",
-           "supported", "twiddles"]
+           "supported", "twiddles", "pass_twiddles"]
 
 _SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 _PRECISIONS = ("split_bf16", "highest")
@@ -71,6 +78,19 @@ def twiddles(n: int, device) -> torch.Tensor:
 def _twiddles_on(n: int, device: str) -> torch.Tensor:
     w = np.exp((-2j * np.pi / n) * np.arange(n))
     return _build.device_constant(np.stack([w.real, w.imag]), device)
+
+
+def pass_twiddles(n: int, device) -> torch.Tensor:
+    """[n, 2] float32 table of W_n^k as (re, im) pairs on ``device``, from
+    float64 at the integer index k: the register FFT's pass twiddles (K6
+    and K10), one 8-byte load each."""
+    return _pass_twiddles_on(int(n), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=64)
+def _pass_twiddles_on(n: int, device: str) -> torch.Tensor:
+    w = np.exp((-2j * np.pi / n) * np.arange(n))
+    return _build.device_constant(np.stack([w.real, w.imag], -1), device)
 
 
 def _check_precision(precision: str) -> None:
@@ -118,7 +138,9 @@ def fft_planar(re, im, n: int = 1024, precision: str = "split_bf16",
                scale: float = 1.0):
     """Batched n-point FFT of float32 planes ``[rows, n]``, one transform
     per row, times ``scale`` (e.g. 1/sqrt(n) for a unitary transform).
-    Returns ``(yr, yi)`` [rows, n] float32, natural bin order."""
+    Rows at one row stride with unit sample stride (views of a wider or
+    flat plane) are read in place.  Returns ``(yr, yi)`` [rows, n]
+    float32, contiguous, natural bin order."""
     n = int(n)
     if not supported(n):
         raise ValueError(f"fft_planar supports n in 256..16384 "
@@ -128,17 +150,18 @@ def fft_planar(re, im, n: int = 1024, precision: str = "split_bf16",
     if re.device.type == "cpu":
         return fft_plain(re, im, scale)
     _cuda(re.device, "the FFT")
-    xr, xi = _f32(re).contiguous(), _f32(im).contiguous()
-    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    if xr.shape[0] == 0:
+    xr, xi = _row_view(re, im)
+    rows, dev = int(xr.shape[0]), xr.device
+    yr = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    if rows == 0:
         return yr, yi
-    dev = xr.device
     lib = _build.load()
-    tw = twiddles(n, dev)
+    tw = pass_twiddles(n, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fft_launch(xr.data_ptr(), xi.data_ptr(), xr.shape[0], n,
-                            tw[0].data_ptr(), tw[1].data_ptr(),
+        rc = lib.fft_launch(xr.data_ptr(), xi.data_ptr(), rows,
+                            int(xr.stride(0)), n, tw.data_ptr(),
                             float(scale), yr.data_ptr(), yi.data_ptr(),
                             stream)
     if rc != 0:

@@ -158,13 +158,6 @@ def _pairs(w: np.ndarray, dev) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def _pass_twiddles(n: int, dev: str) -> torch.Tensor:
-    """[n, 2] of W_n^k, float64 at the integer index k, rounded to
-    float32: the register FFT's pass twiddles."""
-    return _pairs(np.exp((-2j * np.pi / n) * np.arange(n)), dev)
-
-
-@functools.lru_cache(maxsize=32)
 def _twiddle_tables(N: int, dev: str):
     """[N / 2048, 2] of W_N^{2048 j} and [2048, 2] of W_N^j, float64 at
     integer indices, rounded to float32, on ``dev``."""
@@ -267,7 +260,7 @@ def _stage_a_d(re, im, n1: int, n2: int, window=None, means=None,
     if emit_sums:
         sums = torch.empty((b, n2 // ct, 2), dtype=torch.float32,
                            device=dev)
-    tw1 = _pass_twiddles(n1, str(dev))
+    tw1 = _fft.pass_twiddles(n1, dev)
     hi, lo = _twiddle_tables(N, str(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -352,7 +345,7 @@ def psd_stage_b(d, n1: int, n2: int, sparse=None, sums=None):
     spb = _psd_seg_per_block(b, n1, n2)
     part = torch.empty((-(-b // spb), n1, n2), dtype=torch.float32,
                        device=dev)
-    tw2 = _pass_twiddles(n2, str(dev))
+    tw2 = _fft.pass_twiddles(n2, dev)
     sp_k = sp_w = m = None
     nsp = 0
     if sparse is not None:
@@ -427,7 +420,7 @@ def fft_stage_b(d, n1: int, n2: int):
     lib = _build.load()
     yr = torch.empty((b, N), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    tw2 = _pass_twiddles(n2, str(dev))
+    tw2 = _fft.pass_twiddles(n2, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fft_big_stage_b_fft_launch(

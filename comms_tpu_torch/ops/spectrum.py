@@ -182,11 +182,19 @@ def spectrogram(x, nperseg: int = 256, noverlap: int | None = None,
         use_kernel = _auto_use_kernel(x, nperseg)
     segs = _segments(x, nperseg, noverlap)
     rdt = segs.real.dtype if segs.is_complex() else segs.dtype
-    xs = segs * torch.from_numpy(w.astype(np.float32)).to(
+    wt = torch.from_numpy(w.astype(np.float32)).to(
         device=x.device, dtype=rdt)[None, :]
     if use_kernel:
-        yr, yi = _FK.fft_planar(*_planes(xs), n=nperseg)
-        p = yr * yr + yi * yi
+        # the windowed planes straight from the segments (no complex
+        # intermediate to split), |.|^2 in place on the kernel's output
+        if segs.is_complex():
+            re, im = segs.real * wt, segs.imag * wt
+        else:
+            re = segs * wt
+            im = torch.zeros_like(re)
+        yr, yi = _FK.fft_planar(re.to(torch.float32), im.to(torch.float32),
+                                n=nperseg)
+        p = yr.mul_(yr).addcmul_(yi, yi)
     else:
-        p = torch.fft.fft(xs, dim=1).abs().square()
+        p = torch.fft.fft(segs * wt, dim=1).abs().square()
     return torch.fft.fftshift(p, dim=1)

@@ -218,35 +218,44 @@ def test_stage_a_layout_and_sums_contract(n1, n2):
 
 
 # ---- a host copy of the register FFT's plan (csrc/fft_reg.cuh) and of
-# fft_big.cu's lane maps, kept by hand beside the C++: what the CPU can
-# check of the kernels' index arithmetic.
+# the lane maps of its callers, fft_big.cu (K10) and fft.cu (K6), kept by
+# hand beside the C++: what the CPU can check of the kernels' index
+# arithmetic.
 
-_POINTS = 16       # fft_reg.cuh kPoints (:64)
-_PAD_SHIFT = 4     # fft_reg.cuh kPadShift (:65)
+_POINTS = 16       # fft_reg.cuh kPoints
+_PAD_SHIFT = 4     # fft_reg.cuh kPadShift
+_REG_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
 def reg_fft_plan(n: int):
     """``[(radix, Ns), ...]``: the passes of fft_reg.cuh's ``fft_reg``
-    (:271-289; the plan of :16-24) for an n-point transform: radices 16,
-    16, then n / 256 above 256 points; Ns the product of the earlier
-    radices."""
-    assert n in (256, 512, 1024, 2048)
+    (the plan in its header) for an n-point transform: radix 16 while 16
+    or more points remain per sub-transform, then the rest (none at 256
+    and 4096); Ns the product of the earlier radices."""
+    assert n in _REG_SIZES
     plan, ns = [], 1
-    for r in [16, 16] + ([n // 256] if n > 256 else []):
+    while ns < n:
+        r = min(16, n // ns)
         plan.append((r, ns))
         ns *= r
     return plan
 
 
 def _pad(a):
-    """fft_reg.cuh ``pad`` (:67)."""
+    """fft_reg.cuh ``pad``."""
     return a + (a >> _PAD_SHIFT)
+
+
+def k6_threads(n: int) -> int:
+    """fft.cu ``block_threads``: max(128, n / 16) threads a block."""
+    return max(128, n // _POINTS)
 
 
 def exchange_ld(n: int, stage: str, threads: int) -> int:
     """Stride in float2 between two transforms' exchange regions in a
     block of ``threads``: stage ``"a"`` (lanes over columns, fft_big.cu
-    ``a_ld``) or ``"b"`` (16 lanes over one row's points, ``b_ld``)."""
+    ``a_ld``), ``"b"`` (16 lanes over one row's points, ``b_ld``) or
+    ``"k6"`` (fft.cu: consecutive lanes over one row's points)."""
     if stage == "a":
         ct = threads * _POINTS // n
         return _pad(n) + 16 // min(ct, 16)
@@ -254,21 +263,24 @@ def exchange_ld(n: int, stage: str, threads: int) -> int:
 
 
 def _lane_map(n: int, stage: str, threads: int):
-    """Each thread's (region, t) as fft_big.cu assigns them
-    (``stage_a_kernel``'s c, t and ``RowLanes``' r, t)."""
+    """Each thread's (region, t) as the kernels assign them
+    (``stage_a_kernel``'s c, t; ``RowLanes``' r, t; ``fft_rows_kernel``'s
+    r, t)."""
     tid = np.arange(threads)
     T = n // _POINTS
     if stage == "a":
         ct = threads // T
         return tid % ct, tid // ct
+    if stage == "k6":
+        return tid // T, tid % T
     rows = threads // T
     return (tid >> 4) % rows, (tid & 15) + 16 * (tid // (16 * rows))
 
 
 def _exchange_addresses(n: int, t):
-    """Per exchange of fft_reg.cuh (``exchange``, :219-243): the padded
-    in-region addresses of each store instruction and of each load, as
-    two arrays [instr, threads]."""
+    """Per exchange of fft_reg.cuh (``exchange``): the padded in-region
+    addresses of each store instruction and of each load, as two arrays
+    [instr, threads]."""
     T = n // _POINTS
     out = []
     for R, ns in reg_fft_plan(n)[:-1]:
@@ -299,13 +311,39 @@ def exchange_bank_ways(n: int, stage: str, threads: int) -> int:
     return worst
 
 
-def reg_fft_replay(x: torch.Tensor) -> torch.Tensor:
+def _pass_twiddles(n, R, ns, t, table, powers):
+    """The twiddles [T, M, R] that thread t applies to input r of its
+    butterfly m in a pass of fft_reg.cuh's ``pass``: the table entry
+    (j mod Ns) r N / (Ns R) each, or with ``powers`` (K6's kPowers) the
+    running products of one entry (one butterfly a thread) and, in the
+    last pass, the entry t r times the constant W_16^{m r}."""
+    T, M = n // _POINTS, _POINTS // R
+    m, r = torch.arange(M), torch.arange(R)
+    j = t[:, None] + m[None, :] * T                              # [T, M]
+    unit = n // (ns * R)
+    if not powers or ns == 1:
+        return table[((j % ns) * unit)[:, :, None] * r]
+    if M == 1:
+        w = table[(t % ns) * unit]
+        out = torch.ones((len(t), 1, R), dtype=table.dtype)
+        p = w.clone()
+        for k in range(1, R):
+            out[:, 0, k] = p
+            p = p * w
+        return out
+    assert ns * R == n and int((t[-1] * (R - 1))) < n
+    w16 = torch.from_numpy(np.exp((-2j * np.pi / 16) * (np.outer(
+        np.arange(M), np.arange(R)) % 16)).astype(np.complex64))
+    return table[t[:, None] * r[None, :]][:, None, :] * w16[None]
+
+
+def reg_fft_replay(x: torch.Tensor, powers: bool = False) -> torch.Tensor:
     """Run fft_reg.cuh's plan on complex [b, n] with torch: each thread t's
     points t + T q, each pass's twiddles from the float32 W_n^k table at
-    the kernel's integer indices (``pass``, :177-215), its radix-R DFTs,
-    and the exchanges through a padded buffer at the Stockham positions
-    (``exchange``, :219-243; the last pass in natural order, ``natural``,
-    :245-267).  Returns the natural-order outputs."""
+    the kernel's integer indices (``pass``; with ``powers``, K6's
+    kPowers), its radix-R DFTs, and the exchanges through a padded buffer
+    at the Stockham positions (``exchange``; the last pass in natural
+    order, ``natural``).  Returns the natural-order outputs."""
     b, n = x.shape
     T = n // _POINTS
     t = torch.arange(T)
@@ -320,8 +358,7 @@ def reg_fft_replay(x: torch.Tensor) -> torch.Tensor:
         r = torch.arange(R)
         pos = m[:, None] + r[None, :] * M                        # [M, R]
         j = t[:, None] + m[None, :] * T                          # [T, M]
-        e = ((j % ns) * (n // (ns * R)))[:, :, None] * r         # [T, M, R]
-        u = v[:, :, pos] * table[e]                              # [b, T, M, R]
+        u = v[:, :, pos] * _pass_twiddles(n, R, ns, t, table, powers)
         F = torch.from_numpy(np.exp((-2j * np.pi / R) * np.outer(
             np.arange(R), np.arange(R))).astype(np.complex64))
         y = u @ F.T                                              # output r
@@ -340,16 +377,32 @@ def reg_fft_replay(x: torch.Tensor) -> torch.Tensor:
     return X
 
 
-@pytest.mark.parametrize("n", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("n", _REG_SIZES)
 def test_register_fft_plan_replays_to_the_fft(n):
     # fft_reg.cuh's pass plan, twiddle indices and padded exchanges, run
     # with torch on the CPU, give the n-point FFT.
     plan = reg_fft_plan(n)
-    assert [r for r, _ in plan] == [16, 16] + ([n // 256] if n > 256 else [])
+    want = {256: [16, 16], 4096: [16, 16, 16]}.get(
+        n, [16, 16, n // 256] if n < 4096 else [16, 16, 16, n // 4096])
+    assert [r for r, _ in plan] == want
     assert int(np.prod([r for r, _ in plan])) == n
+    # every twiddle index is an integer below n
+    assert all((ns - 1) * (R - 1) * (n // (ns * R)) < n for R, ns in plan)
     x = _cx(np.random.default_rng(n), (3, n))
     got = reg_fft_replay(torch.from_numpy(x)).numpy()
     assert _relmax(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-5
+
+
+@pytest.mark.parametrize("n", _REG_SIZES)
+def test_k6_twiddle_powers_replay_to_the_fft(n):
+    # K6's twiddles (fft_reg.cuh kPowers: powers of one table entry per
+    # butterfly, the last pass's entries t r times W_16^{m r}) in complex64
+    # give the n-point FFT, and agree with the table twiddles' replay.
+    x = _cx(np.random.default_rng(n + 1), (3, n))
+    got = reg_fft_replay(torch.from_numpy(x), powers=True).numpy()
+    assert _relmax(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-5
+    table = reg_fft_replay(torch.from_numpy(x)).numpy()
+    assert _relmax(got, table) < 1e-5
 
 
 @pytest.mark.parametrize("stage", ["a", "b"])
@@ -359,6 +412,19 @@ def test_register_fft_exchange_is_bank_conflict_free(n, threads, stage):
     # Every warp's store and load of every exchange, with fft_big.cu's
     # lane maps and region strides, hits each shared-memory bank once.
     assert exchange_bank_ways(n, stage, threads) == 1
+
+
+@pytest.mark.parametrize("n", _REG_SIZES)
+def test_k6_exchange_is_bank_conflict_free(n):
+    # K6 (fft.cu): consecutive lanes on consecutive points of one row
+    # (two rows a warp at 256 points), regions pad(n) apart, in blocks of
+    # max(128, n / 16) threads; every exchange of the 256..16384 plans.
+    threads = k6_threads(n)
+    assert threads * _POINTS % n == 0 and threads <= 1024
+    assert exchange_bank_ways(n, "k6", threads) == 1
+    # the exchange regions of a block fit the 227 KB an SM's block may take
+    rows = threads * _POINTS // n
+    assert rows * exchange_ld(n, "k6", threads) * 8 <= 227 * 1024
 
 
 @pytest.mark.parametrize("n1, n2", [(512, 256), (256, 1024)])

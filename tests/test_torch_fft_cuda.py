@@ -43,8 +43,12 @@ def _planes(shape, seed, offset=0.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, rows", [(256, 37), (1024, 8), (4096, 3),
-                                     (8192, 2), (16384, 3)])
+@pytest.mark.parametrize("n, rows", [
+    (256, 37), (1024, 8), (4096, 3), (8192, 2), (16384, 3),
+    # one row, and row counts that leave the last block part-filled (a
+    # block holds 2048 / n rows up to 2048 points)
+    (256, 1), (512, 1), (512, 21), (1024, 1), (1024, 13), (2048, 1),
+    (2048, 7), (4096, 1), (8192, 1), (16384, 1)])
 def test_fft_matches_plain(n, rows):
     _card()
     re, im = _planes((rows, n), n)
@@ -61,6 +65,24 @@ def test_fft_matches_plain(n, rows):
     rev = torch.remainder(-torch.arange(n, device="cuda"), n)
     got = torch.complex(ui2, ur2)
     assert _rel(got, torch.complex(re, im)[:, rev]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 2048, 16384])
+def test_fft_reads_row_strided_views(n):
+    # rows of a wider plane and overlapping unfold rows are read in place
+    _card()
+    re, im = _planes((5, 3 * n), 2 * n)
+    s = 1.0 / n
+    for r, i in ((re[:, n:2 * n], im[:, n:2 * n]),
+                 (re.reshape(-1).unfold(0, n, n // 2),
+                  im.reshape(-1).unfold(0, n, n // 2))):
+        assert not r.is_contiguous()
+        yr, yi = TFK.fft_planar(r, i, n, scale=s)
+        wr, wi = TFK.fft_plain(r.contiguous(), i.contiguous(), s)
+        torch.cuda.synchronize()
+        assert yr.is_contiguous() and yr.shape == r.shape
+        assert _rel(torch.complex(yr, yi), torch.complex(wr, wi)) < TOL_FFT
 
 
 @pytest.mark.cuda

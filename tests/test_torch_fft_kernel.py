@@ -39,7 +39,7 @@ def test_sizes_and_tiles_match_jax():
     np.testing.assert_array_equal(tspec.hann(1000), jspec.hann(1000))
 
 
-@pytest.mark.parametrize("n", [256, 1024, 4096])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
 def test_fft_matches_jax_kernel(n):
     x = _rows(np.random.default_rng(0), 5, n)
     ref = np.fft.fft(x.astype(np.complex128), axis=1)
