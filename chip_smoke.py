@@ -44,8 +44,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    complex taps from a mid-stream context), the symbol kernel's three
    entries with panels at halfwidth 51 (zero and carried context) and
    the panel reductions against their plain versions; panels repeat bit
-   for bit; the kernel route against the tensor route at one
-   IN_PER_STEP block;
+   for bit, and stay within 1e-5 of the panels of float64 planes at 2^19,
+   2^22 and 2^25 samples; the kernel route against the tensor route at
+   one IN_PER_STEP block;
 9. QPSK main paths: the one-shot receiver (fused core: the symbol
    kernel's panel and ``_scalars`` entries) and the staged core (the FIR
    kernel) on the capture, zero bit errors over the whole capture, the
@@ -56,8 +57,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    warm-up block with one lag across the seams; the fast step on the
    same blocks; two blocks under ``torch.cuda.set_sync_debug_mode
    ("error")``; exact launch counts;
-10. QPSK kernel and plain-version times, and a ``torch.profiler`` split
-   of one served block;
+10. QPSK kernel, plain-version and library (a packed ``torch.matmul``
+   for the panels) times, and a ``torch.profiler`` split of one served
+   block;
 11. spectrum kernels against their plain versions at full width, on a
    white-noise capture: the FFT kernel at 16,777,216 samples as rows of
    every size, 256..16384 (scale 1/sqrt(n), against a float64 oracle
@@ -79,10 +81,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``torch.fft.fft`` of a complex tensor packed beforehand and its bound;
    a ``torch.profiler`` split of the 256-point spectrogram, kernel route
    against tensor route;
-14. every kernel table row carries its bound (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s, from this run's shapes) and, where
+14. every kernel table row carries its bound (the largest of bytes over
+   3.35 TB/s, float32 operations over 67 TFLOP/s and, for K5's panels,
+   3xTF32 operations over 495 TFLOP/s, from this run's shapes) and, where
    one PyTorch call computes the same function (``F.conv1d`` for the FIR
-   entries, ``torch.fft.fft`` for the FFT entries), that call's time;
+   entries, ``torch.fft.fft`` for the FFT entries, a packed
+   ``torch.matmul`` for the QPSK panels), that call's time;
 15. the ring halo exchange kernel (K12) against its plain version bit for
    bit, at the sharded paths' halos (complex64, float32 and u8 tails, the
    wrapped and the carried-context forms, the 2-D column rings, both
@@ -173,6 +177,7 @@ QPSK_MARGIN = 16        # symbols skipped at a one-shot block's edges
 # 1e-3 (tests/test_qpsk_rx.py:170-178).
 TOL_SYM = 1e-4
 TOL_PANEL = 1e-5
+PANEL_F64_N = (1 << 19, 1 << 22, QPSK_N)   # panels held to float64 here
 TOL_ROUTE = 1e-3
 TOL_REDUCE = 1e-4
 TOL_STREAM_SYM = 2e-3   # fast vs fused stream step (the JAX test's)
@@ -217,32 +222,40 @@ TOL_SH_CHAIN = 1e-4
 TOL_SH_2D = 1e-5
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at its 700 W
-# limit): a kernel's bound is the larger of its bytes over the memory
-# rate and its operations over the float32 rate of the CUDA cores.
+# limit): a kernel's bound is the largest of its bytes over the memory
+# rate, its operations on the CUDA cores over their float32 rate, and its
+# operations on the tensor cores over their dense TF32 rate (three TF32
+# operations for each float32 one in 3xTF32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, tf32x3_flops: float = 0.0):
     """``(bound_ms, bound_by)``: the least time the card could take to move
-    ``nbytes`` (each input read once, each output written once) and to do
-    ``flops`` float32 operations."""
+    ``nbytes`` (each input read once, each output written once), to do
+    ``flops`` float32 operations on the CUDA cores and ``tf32x3_flops``
+    float32 operations on the tensor cores in 3xTF32 (three TF32
+    operations each); ``bound_by`` is "bytes" or "operations"."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / F32_FLOP_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    t_o = max(flops / F32_FLOP_PER_S, 3 * tf32x3_flops / TF32_FLOP_PER_S)
+    return (t_b, "bytes") if t_b >= 1e3 * t_o else (1e3 * t_o, "operations")
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
-               nbytes, flops, library_ms=None) -> dict:
+               nbytes, flops, library_ms=None, tf32x3_flops=0.0) -> dict:
     """One entry of the kernel table: the bound is computed from this run's
-    shapes (``nbytes``, ``flops``); every time was measured in this run."""
-    b_ms, by = bound(nbytes, flops)
+    shapes (``nbytes``, ``flops`` on the CUDA cores, ``tf32x3_flops`` on
+    the tensor cores); every time was measured in this run."""
+    b_ms, by = bound(nbytes, flops, tf32x3_flops)
+    tc = (f" + {tf32x3_flops / 1e9:.3f} GFLOP in 3xTF32" if tf32x3_flops
+          else "")
     print(f"bound of {name}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} "
-          f"GFLOP -> {b_ms:.4f} ms ({by}); kernel {ms:.4f} ms")
+          f"GFLOP{tc} -> {b_ms:.4f} ms ({by}); kernel {ms:.4f} ms")
     return {"name": name, "route": "cuda",
             "source": "comms_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": launches,
@@ -1092,6 +1105,24 @@ def qpsk_phases(dev, card: str) -> list:
         fail("the panels differ between two runs")
     if not all(torch.equal(a, b) for a, b in zip(qp[:4], kpan[:4])):
         fail("the panels of the panel entry and the _scalars entry differ")
+    # the panels (3xTF32 on the tensor cores) against the panels of float64
+    # copies of the planes, at three lengths: the error must not grow with
+    # the rows summed faster than the float32 sums' own
+    e64 = {}
+    for n in PANEL_F64_N:
+        got = qp if n == QPSK_N else QS.qpsk_panels(re[:n], im[:n], hw)
+        ref = QS.qpsk_panels_plain(re[:n].double(), im[:n].double(), hw)
+        f32 = panels_plain if n == QPSK_N else QS.qpsk_panels_plain(
+            re[:n], im[:n], hw)
+        scale = max(float(p.abs().max()) for p in ref[:4])
+        e64[n] = {name: max(float((g.double() - r).abs().max())
+                            for g, r in zip(pan[:4], ref[:4])) / scale
+                  for name, pan in (("kernel", got), ("plain", f32))}
+        del ref
+    print("QPSK panels vs float64 panels (relative to the largest entry; "
+          "plain = cuBLAS float32):", json.dumps(e64))
+    if not all(v["kernel"] <= TOL_PANEL for v in e64.values()):
+        fail(f"panels vs float64 beyond {TOL_PANEL}: {e64}")
     for k, (_, e) in errs.items():
         tol = TOL_PANEL if "panel" in k else (
             TOL_SYM if k.startswith("qpsk") else TOL_FIR)
@@ -1313,6 +1344,9 @@ def qpsk_phases(dev, card: str) -> list:
           f"{sym_ms:.4f} ms, plain {sym_plain_ms:.4f} ms")
     qpsk_profile(step, st, blocks[2], card)
 
+    lib_panels = packed_matmul_ms(re, im, hw, qp)
+    print(f"library (packed torch.matmul, TF32 off) on {card}: qpsk_panels "
+          f"{lib_panels:.4f} ms")
     T = cfg.mf_taps.shape[0]
     lib_fir = conv1d_ms(
         torch.nn.functional.pad(torch.stack([re, im]), (T - 1, 0)),
@@ -1328,32 +1362,65 @@ def qpsk_phases(dev, card: str) -> list:
                           "qpsk_symbol_gemm_scalars", "qpsk_panels",
                           "panel_reductions")}
     # Bytes and operations from the shapes: complex taps on complex
-    # samples 8 flops a tap at the N/4 symbols; the four panels 4w
-    # multiply-adds a sample (w = 128 + 2hw); the reductions' 12 flops per
-    # panel entry they read.
+    # samples 8 flops a tap at the N/4 symbols (CUDA cores); the four
+    # panels 4w multiply-adds a sample (w = 128 + 2hw), in 3xTF32 on the
+    # tensor cores; the reductions' 12 flops per panel entry they read.
     N, MD, w = QPSK_N, int(fr.shape[0]), 128 + 2 * hw
     sym = (8 * N + 8 * N // 4, 2 * MD * N)
     pan = (8 * N, 8 * w * N)
     table = [
         ("fir_planar", "fir.cu", "comms_tpu/kernels/fir_pallas.py:253",
-         worst("fir_"), 16 * N, 4 * T * N, lib_fir),
+         worst("fir_"), 16 * N, 4 * T * N, 0, lib_fir),
         ("qpsk_symbol_gemm", "qpsk_sym.cu",
          "comms_tpu/kernels/qpsk_sym_pallas.py:643",
-         worst("qpsk_symbol_gemm_"), sym[0], sym[1] + pan[1], None),
+         worst("qpsk_symbol_gemm_"), sym[0], sym[1], pan[1], None),
         ("qpsk_symbol_gemm_scalars", "qpsk_sym.cu",
          "comms_tpu/kernels/qpsk_sym_pallas.py:501",
-         worst("qpsk_symbol_gemm_scalars"), sym[0], sym[1] + pan[1], None),
+         worst("qpsk_symbol_gemm_scalars"), sym[0], sym[1], pan[1], None),
         ("qpsk_panels", "qpsk_sym.cu",
          "comms_tpu/kernels/qpsk_sym_pallas.py:553", worst("qpsk_panels"),
-         pan[0], pan[1], None),
+         pan[0], 0, pan[1], lib_panels),
         ("panel_reductions", "panel_reduce.cu",
          "comms_tpu/kernels/panel_reduce_pallas.py:125",
          worst("panel_reductions"), 2 * 256 * 256 * 4 + 16 * 128 * 4,
-         12 * (2 * hw + 1) * 128, None),
+         12 * (2 * hw + 1) * 128, 0, None),
     ]
     return [kernel_row(name, f, rep, launches[name], err, times[name][0],
-                       times[name][1], nbytes, flops, lib)
-            for name, f, rep, err, nbytes, flops, lib in table]
+                       times[name][1], nbytes, flops, lib, tc)
+            for name, f, rep, err, nbytes, flops, tc, lib in table]
+
+
+def packed_panel_operands(re, im, hw: int):
+    """The panels as one product ``V.T @ W``: V [R, 256] (the planes as
+    rows of 128, side by side, zero at or past N - hw) and W [R, 2w] (the
+    Wr and Wi windows side by side), each packed; C = V.T @ W holds P1 =
+    C[:128, :w], P2 = -C[:128, w:], P3 = C[128:, :w], P4 = -C[128:, w:]."""
+    import torch
+
+    n = re.shape[0]
+    K, w = n - hw, 128 + 2 * hw
+    R = -(-K // 128)
+    pad = torch.nn.functional.pad
+    V = torch.cat([pad(p[:K], (0, 128 * R - K)).view(R, 128)
+                   for p in (re, im)], 1)
+    W = torch.cat([pad(p, (hw, 128 * R + w - n - hw)).unfold(0, w, 128)[:R]
+                   for p in (re, im)], 1).contiguous()
+    return V, W
+
+
+def packed_matmul_ms(re, im, hw: int, want) -> float:
+    """The library yardstick of the panels: one ``torch.matmul`` (cuBLAS,
+    TF32 off) of the operands of :func:`packed_panel_operands`, packed
+    beforehand.  Prints its difference from the kernel's panels
+    ``want``."""
+    V, W = packed_panel_operands(re, im, hw)
+    C = V.T @ W
+    w = W.shape[1] // 2
+    got = (C[:128, :w], -C[:128, w:], C[128:, :w], -C[128:, w:])
+    scale = max(float(p.abs().max()) for p in want[:4])
+    diff = max(max_err(g, k) for g, k in zip(got, want[:4])) / scale
+    print(f"packed torch.matmul vs the panel kernel: {diff:.3g} relative")
+    return cuda_ms(lambda: V.T @ W)
 
 
 def busy_ms(ops, lo: float, hi: float) -> float:
@@ -2267,8 +2334,8 @@ def main() -> None:
     print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")
     print_ptxas_report(_build)
     print_ptxas_kernels(_build, ("fir_kernel", "qpsk_sym_kernel",
-                                 "qpsk_panel_partial_kernel",
-                                 "qpsk_panel_reduce_kernel",
+                                 "qpsk_panel_tf32x3_kernel",
+                                 "qpsk_panel_chunk_sum_kernel",
                                  "panel_reduce_kernel", "fft_rows_kernel",
                                  "psd_partial_kernel", "psd_reduce_kernel",
                                  "stage_a_kernel", "stage_b_psd_kernel",

@@ -163,11 +163,9 @@ def _bind(lib) -> None:
         ptr, ptr, ptr,             # mf rows, (w, lag, phase0), shift2
         i64, ptr, ptr, ptr,        # samples, yr, yi, cudaStream_t
     ]
-    lib.qpsk_panel_chunk_rows.restype = i32
-    lib.qpsk_panel_chunk_rows.argtypes = []
     lib.qpsk_panels_launch.restype = i32
     lib.qpsk_panels_launch.argtypes = [
-        ptr, ptr, i64, i32,        # re, im, samples, halfwidth
+        ptr, ptr, i64, i32, i32,   # re, im, samples, halfwidth, chunk rows
         ptr, i32, ptr, ptr,        # partial sums, chunks, panels, stream
     ]
     lib.panel_reduce_launch.restype = i32

@@ -27,8 +27,12 @@ The de-rotation angle follows the TPU kernel's float32 decomposition
 (per 65,536-symbol step, row of 128 and lane, each reduced mod 2*pi),
 and so does the plain version :func:`qpsk_symbol_plain`, so the two agree
 at full width, where a single ``ws*s`` product in float32 would be off by
-tens of milliradians.  The panels are summed per chunk of rows and then
-over the chunks in a fixed order: two runs give bit-identical panels.
+tens of milliradians.  The panels run on the tensor cores in 3xTF32
+(``csrc/tf32x3.cuh``: each operand split into TF32 hi and lo, three
+products a term, float32 accuracy; :mod:`._tf32` mirrors the split for
+the CPU tests), per chunk of rows (:func:`panel_chunking`), and are then
+summed over the chunks in a fixed order: two runs give bit-identical
+panels.
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions for CPU tensors; any other device raises.  ``launches`` counts,
@@ -49,7 +53,7 @@ from comms_tpu_torch.ops import fir as _fir
 
 __all__ = ["qpsk_symbol_gemm", "qpsk_symbol_gemm_scalars", "qpsk_panels",
            "qpsk_symbol_plain", "qpsk_panels_plain", "modulated_taps_plain",
-           "kernel_ok", "IN_PER_STEP", "SPS"]
+           "kernel_ok", "panel_chunking", "IN_PER_STEP", "SPS"]
 
 _LANES = 128
 _ROWS = 512                    # output rows of 128 symbols per TPU step
@@ -58,6 +62,7 @@ SPS = 4
 _MD_MAX = 132
 _MF_MAX = 116                  # matched-filter taps of the _scalars entry
 _STEP_SYMS = IN_PER_STEP // SPS
+_PANEL_CHUNKS = 66             # the panel kernel's chunks of rows, at least
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
 # Calls that launched kernels, per entry, since import (or since a
@@ -173,20 +178,31 @@ def _launch_symbols(re, im, ctx, md, taps=None, ws=None, phase0=0.0,
     return yr, yi
 
 
+def panel_chunking(n: int, hw: int):
+    """``(chunk_rows, chunks)`` of the panel kernel at N = ``n``: the R =
+    ceil((n - hw) / 128) rows cut into chunks of floor(R / 66) rows (at
+    least one), so at least 66 chunks of 8 block tiles: four blocks for
+    each of the H100's 132 SMs at every N of the main paths."""
+    R = -(-(n - hw) // _LANES)
+    rows = max(1, R // _PANEL_CHUNKS)
+    return rows, -(-R // rows)
+
+
 def _launch_panels(re, im, hw: int):
     lib = _build.load()
     dev = re.device
     n = re.shape[0]
     meta = _panel_meta(n, hw)
-    chunk_rows = lib.qpsk_panel_chunk_rows()
-    chunks = -(-meta["R"] // chunk_rows)
-    part = torch.empty(chunks * 256 * 512, dtype=torch.float32, device=dev)
+    chunk_rows, chunks = panel_chunking(n, hw)
+    w8 = -(-meta["width"] // 8) * 8
+    part = torch.empty(chunks * 4 * _LANES * w8, dtype=torch.float32,
+                       device=dev)
     panels = torch.empty((4, _LANES, meta["width"]), dtype=torch.float32,
                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.qpsk_panels_launch(re.data_ptr(), im.data_ptr(), n, hw,
-                                    part.data_ptr(), chunks,
+                                    chunk_rows, part.data_ptr(), chunks,
                                     panels.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"QPSK panel kernel launch failed: CUDA "

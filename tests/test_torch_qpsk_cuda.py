@@ -109,16 +109,29 @@ def test_symbol_entries_match_plain(cuda, steps, shift2, with_ctx):
     assert _err(torch.complex(kr, ki), want) < TOL_SYM
 
 
+# 128 * 2641 samples: R = 2641 rows = 66 chunks of 40 rows and one row
+# (qpsk_sym.panel_chunking), a length only the panel launcher takes.
+_ONE_ROW_PAST = 128 * 2641
+
+
 @pytest.mark.cuda
-def test_panels_match_plain_and_repeat_bit_for_bit(cuda):
-    rng = np.random.default_rng(21)
-    N = 2 * TQS.IN_PER_STEP
+@pytest.mark.parametrize("steps", [1, 2, 3, _ONE_ROW_PAST])
+@pytest.mark.parametrize("hw", [1, 8, 51, 63, 64])
+def test_panels_match_plain_and_repeat_bit_for_bit(cuda, hw, steps):
+    rng = np.random.default_rng(21 + hw + steps)
+    N = steps * TQS.IN_PER_STEP if steps < 4 else steps
     re, im = _planes(rng, N, cuda)
-    hw = trx.QpskRxConfig().panel_hw
-    got = TQS.qpsk_panels(re, im, hw)
-    again = TQS.qpsk_panels(re, im, hw)
+    whole = TQS.kernel_ok(N, 44, 4)
+    if not whole:
+        rows, chunks = TQS.panel_chunking(N, hw)
+        assert -(-(N - hw) // 128) == (chunks - 1) * rows + 1
+    n0 = dict(TQS.launches)
+    entry = TQS.qpsk_panels if whole else TQS._launch_panels
+    got = entry(re, im, hw)
+    again = entry(re, im, hw)
     want = TQS.qpsk_panels_plain(re, im, hw)
     torch.cuda.synchronize()
+    assert TQS.launches["qpsk_panels"] == n0["qpsk_panels"] + 2 * whole
     scale = max(float(p.abs().max()) for p in want[:4])
     for g, a, w in zip(got[:4], again[:4], want[:4]):
         assert g.shape == w.shape == (128, 128 + 2 * hw)
@@ -126,11 +139,31 @@ def test_panels_match_plain_and_repeat_bit_for_bit(cuda):
         assert torch.equal(g, a)
     assert {k: got[4][k] for k in ("nd", "K", "Kp", "R", "width")} == {
         k: want[4][k] for k in ("nd", "K", "Kp", "R", "width")}
-    # the symbol entry's panels are the same numbers
+    if not whole:
+        return
+    # the symbol entries' panels are the same numbers
     z = torch.zeros(44, device=cuda)
     _, _, p2 = TQS.qpsk_symbol_gemm(re, im, z, z, 0.0, panels_hw=hw)
-    for g, a in zip(got[:4], p2[:4]):
-        assert torch.equal(g, a)
+    w_, lag, s2 = _sym_args(rng, cuda, 0)
+    _, _, p3 = TQS.qpsk_symbol_gemm_scalars(
+        re, im, trx.QpskRxConfig().mf_taps, w_, lag, s2, panels_hw=hw)
+    for g, a, b in zip(got[:4], p2[:4], p3[:4]):
+        assert torch.equal(g, a) and torch.equal(g, b)
+
+
+@pytest.mark.cuda
+def test_panels_match_float64_panels(cuda):
+    # 2^22 samples (one shard of the sharded receiver): 3xTF32 with
+    # float32 sums against the panels of float64 copies of the planes
+    rng = np.random.default_rng(22)
+    re, im = _planes(rng, 1 << 22, cuda)
+    hw = trx.QpskRxConfig().panel_hw
+    got = TQS.qpsk_panels(re, im, hw)
+    want = TQS.qpsk_panels_plain(re.double(), im.double(), hw)
+    scale = max(float(p.abs().max()) for p in want[:4])
+    err = max(float((g.double() - w).abs().max())
+              for g, w in zip(got[:4], want[:4]))
+    assert err < TOL_PANEL * scale
 
 
 def _pack(panels):
