@@ -64,9 +64,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    white-noise capture: the FFT kernel at 16,777,216 samples as rows of
    every size, 256..16384 (scale 1/sqrt(n), against a float64 oracle
    on a subset of rows, the plane-swap step twice an exact bin reversal)
-   and the 256-point spectrogram; the PSD kernel's stream entry (n =
-   1024) and its row entry through ``welch_psd``, each bin against that
-   bin; then three tones standing out of the noise of a tone capture;
+   and the 256-point spectrogram; the PSD kernel's stream entry and its
+   row entry (the stream's ``unfold`` view) at every size, 256..16384,
+   against the plain version and a float64 oracle bin by bin, the two
+   entries bit for bit, and the row entry through ``welch_psd``; then
+   three tones standing out of the noise of a tone capture;
    the four-step kernel: ``welch_numerator`` at 2^20 x 32 in its three
    ingest layouts, with means and with sparse demean, stage A, and
    ``fft_large`` at 2^20 x 32 and 2^22 x 8;
@@ -79,6 +81,9 @@ Phases (each raises on failure, so any failure exits non-zero):
 13. spectrum kernel, plain-version and library (``torch.fft.fft``) times;
    the FFT kernel at every size beside its plain version,
    ``torch.fft.fft`` of a complex tensor packed beforehand and its bound;
+   the PSD kernel's two entries at every size beside its plain version,
+   the FFT-alone yardstick (``torch.fft.fft`` of the same segments packed
+   beforehand) and its bound;
    a ``torch.profiler`` split of the 256-point spectrogram, kernel route
    against tensor route;
 14. every kernel table row carries its bound (the largest of bytes over
@@ -1619,29 +1624,36 @@ def spectrum_phases(dev, card: str) -> list:
     abs_err["spectrogram"] = max_err(S_k, S_t)
     del S_k, S_t
 
-    # ---- 11b. K7: the stream entry at N = 16,777,216, n = 1024, and the
-    # segment-row entry through welch_psd, on the noise and per bin (each
-    # bin's error relative to that bin); then the tones stand out
+    # ---- 11b. K7: the stream entry and the row entry (the stream's unfold
+    # view) at N = 16,777,216 and every size, on the noise and per bin
+    # (each bin's error relative to that bin), against the plain version
+    # and float64; the two entries bit for bit; the row entry through
+    # welch_psd; then the tones stand out
+    for n in SP_SIZES:
+        w = tspec.hann(n)
+        acc = SK.psd_stream_planar(nr, ni, w, n)
+        segs = (nr.unfold(0, n, n // 2), ni.unfold(0, n, n // 2))
+        acc_rows = SK.psd_planar(*segs, w, n)
+        want = SK.psd_stream_plain(nr, ni, w, n)
+        f64 = SK.psd_stream_plain(nr.double(), ni.double(), w, n)
+        for key, got in (("stream", acc), ("rows", acc_rows)):
+            check(f"psd_{key}_{n}_vs_plain", bin_err(got, want), TOL_PSD)
+            check(f"psd_{key}_{n}_vs_float64", bin_err(got.double(), f64),
+                  TOL_PSD)
+            if n == SP_NFFT:
+                abs_err[f"psd_{key}"] = max_err(got, want)
+        if not (torch.equal(acc, acc_rows) and torch.isfinite(acc).all()):
+            fail(f"K7 at n={n}: the two entries differ or are not finite")
+        del acc, acc_rows, want, f64
     w = tspec.hann(SP_NFFT)
-    acc = SK.psd_stream_planar(nr, ni, w, SP_NFFT)
-    want = SK.psd_stream_plain(nr, ni, w, SP_NFFT)
-    check("psd_stream_vs_plain", bin_err(acc, want), TOL_PSD)
-    check("psd_stream_vs_float64",
-          bin_err(acc.double(), SK.psd_stream_plain(nr.double(), ni.double(),
-                                                    w, SP_NFFT)), TOL_PSD)
-    abs_err["psd_stream"] = max_err(acc, want)
     segs = (nr.unfold(0, SP_NFFT, SP_NFFT // 2),
             ni.unfold(0, SP_NFFT, SP_NFFT // 2))
-    acc_rows = SK.psd_planar(*segs, w, SP_NFFT)
-    want = SK.psd_plain(*segs, w)
-    check("psd_rows_vs_plain", bin_err(acc_rows, want), TOL_PSD)
-    abs_err["psd_rows"] = max_err(acc_rows, want)
     _, p_k = tspec.welch_psd(xn, nperseg=SP_NFFT)
     _, p_t = tspec.welch_psd(xn, nperseg=SP_NFFT, use_kernel=False)
     _, p_s = tspec.welch_psd_planar(nr, ni, nperseg=SP_NFFT)
     check("welch_kernel_vs_tensor_route", bin_err(p_k, p_t), TOL_WELCH)
     check("welch_planar_vs_welch", bin_err(p_s, p_k), TOL_WELCH)
-    del acc, acc_rows, want, p_t
+    del p_t
     _, p_k = tspec.welch_psd(x0, nperseg=SP_NFFT)
     _, p_s = tspec.welch_psd_planar(re, im, nperseg=SP_NFFT)
     med = float(p_s.median())
@@ -1837,6 +1849,30 @@ def spectrum_phases(dev, card: str) -> list:
                  "bound_over_kernel": b_ms / k_ms}
         del z
     print(f"K6 at {SP_N} samples by row size on {card}:", json.dumps(k6))
+    # K7 at every size: both entries beside the plain version, the FFT
+    # alone on the same segments packed beforehand (torch.fft.fft: the
+    # same transforms without window, demean and sums; a yardstick, not a
+    # library call of K7's function) and the bound: 8 bytes a sample, the
+    # FFTs and ~10 flops a transformed point
+    k7 = {}
+    for n in SP_SIZES:
+        wn = tspec.hann(n)
+        ur, ui = nr.unfold(0, n, n // 2), ni.unfold(0, n, n // 2)
+        z = torch.complex(ur, ui).contiguous()
+        s_ms = cuda_ms(lambda: SK.psd_stream_planar(nr, ni, wn, n))
+        f_ms = cuda_ms(lambda: torch.fft.fft(z, dim=1))
+        b_ms = bound(8 * SP_N + 8 * n,
+                     ur.shape[0] * n * (5 * lg(n) + 10))[0]
+        k7[n] = {"stream_ms": s_ms,
+                 "rows_ms": cuda_ms(lambda: SK.psd_planar(ur, ui, wn, n)),
+                 "plain_ms": cuda_ms(
+                     lambda: SK.psd_stream_plain(nr, ni, wn, n)),
+                 "fft_alone_ms": f_ms, "bound_ms": b_ms,
+                 "stream_over_fft_alone": s_ms / f_ms,
+                 "bound_over_stream": b_ms / s_ms}
+        del z
+    print(f"K7 at {SP_N} samples by segment size on {card}:",
+          json.dumps(k7))
     extra = {}
     extra["welch_numerator_2^20x32"] = (
         cuda_ms(lambda: BK.welch_numerator(rb, ib, wF)), None)

@@ -3,236 +3,365 @@
 // comms_tpu/kernels/fft_pallas.py: psd_pallas_planar (explicit segment
 // rows, optional row weights) and psd_stream_pallas_planar (50%-overlap
 // segments of a flat stream); comms_tpu_torch/kernels/fft.py holds the
-// wrappers and the plain versions.
+// wrappers, the plain versions and the run partition (psd_partition).
 //
 //   acc[k] = sum_r | sum_t (w_r x[r, t] - m_r) win[t] e^{-2 pi i t k / n} |^2
 //
 // with segment r at x + r * row_stride (row_stride = n for segment rows,
 // n / 2 for the stream), w_r the row weight (1 without weights) and m_r
-// the mean of w_r x[r, :] when demeaning (0 otherwise).
+// the mean of w_r x[r, :] when demeaning (0 otherwise); n = 256..16384.
 //
 // Bound on the H100: the stream entry reads each sample once (8 bytes)
-// and does two FFTs per sample (about 10 log2(n) + 16 flops), so device
-// memory bounds it (0.04 ms for 16,777,216 samples at 3.35 TB/s; the
-// FFTs are about 1.7 GFLOP at n = 1024, under the CUDA cores' rate).
-// Design: a thread block of 512 threads owns a fixed run of tiles of
-// S = max(n, 4096) / n segments.  Per tile it loads the segments into
-// shared memory (consecutive segments of the stream overlap by half, so
-// the second read of a sample comes from L1/L2, not device memory),
-// takes each segment's mean (per-thread chunk sums, warp shuffles, a
-// fixed tree), demeans and windows in place, runs the shared-memory FFT
-// of fft_smem.cuh, and adds |X|^2 into registers.  After its run it sums
-// its tiles' rows per bin into a partial row; psd_reduce_kernel adds the
-// partial rows bin by bin in a fixed order.  No float atomics: two runs
-// give bit-identical sums.  The TPU kernel's Z-order accumulator, its
-// DMA ring over 8-row halos and its zero-weighted final odd segment are
-// not carried over (the stream entry simply runs 2N/n - 1 segments).
+// and does two n-point FFTs per sample (about 5 log2(n) + 10 flops per
+// transformed point), so device memory bounds it (0.04 ms for 16,777,216
+// samples at 3.35 TB/s; the FFTs are about 2 GFLOP at n = 1024, 0.03 ms
+// at the CUDA cores' float32 rate).
+//
+// Design.  Every transform runs in registers on the register FFT of
+// fft_reg.cuh with K6's twiddles (kPowers: one table entry a butterfly,
+// its powers by running products): T = n / 16 threads a segment, thread
+// t holding the points t + T q (q < 16), in blocks of max(128, T)
+// threads, so G = max(128, T) / T segment groups a block.  Each group
+// walks a run of `per_run` consecutive segments (the partition depends
+// only on rows and n, never on the card: kernels/fft.psd_partition):
+// - Loads go straight from the planes into registers.  At row stride
+//   n / 2 (the stream entry, and the rows entry on unfold's 50%-overlap
+//   views) points q + 8 of segment s are points q of segment s + 1, so a
+//   thread keeps the raw upper half in registers and loads only the 8 new
+//   points a plane for each later segment of its run: each sample is read
+//   from device memory once, with no shared memory for the overlap.  Any
+//   other stride loads all 16, and so does 16384 points, where the carry's
+//   16 registers spill (the second read of a sample then hits L1).
+// - Row weight and mean act on the raw values per segment, so the carried
+//   half stays raw.  The mean is summed in a fixed order (each thread's 16
+//   points in order, an xor-shuffle tree in the warp, the group's warps in
+//   order through shared memory), subtracted before the window and the
+//   FFT: subtracting m FFT(win) after the transform would cancel at bins
+//   0 and +-1 when the mean is large.
+// - |X|^2 adds into 16 sums a thread (bins t + T q) across the run, in
+//   registers, or in the thread's own shared-memory slots where a block of
+//   1024 threads (16384 points) leaves 64 registers.  At the run's end
+//   the block's groups add their sums in group order into one partial row
+//   per block, and psd_reduce_kernel adds the partial rows bin by bin in
+//   a fixed order.  No float atomics: two calls give bit-identical sums,
+//   and the two entries, one kernel on one partition, give the same bits
+//   on the same segments.
+// - Up to 8192 points a thread may take 128 registers (16 warps an SM):
+//   at 64 registers (32 warps) the kernel ran no faster, since the
+//   instructions of its loop (about 1,200 a segment at 1024 points), not
+//   latency, bound it.
+// The TPU kernel's Z-order accumulator, its DMA ring over 8-row halos and
+// its zero-weighted final odd segment are not carried over: the stream
+// entry runs its 2N/n - 1 segments as rows at stride n / 2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fft_smem.cuh"
+#include "fft_reg.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kReduceGroups = 16;
+using fft_reg_detail::kPoints;
+using fft_reg_detail::pad;
 
-template <int KPT>
-__global__ void __launch_bounds__(kThreads)
-    psd_partial_kernel(const float* __restrict__ xr,
-                       const float* __restrict__ xi, int64_t rows,
-                       int64_t row_stride, int n, int log2n,
-                       const float* __restrict__ win,
-                       const float* __restrict__ row_w, int demean,
-                       const float* __restrict__ twr,
-                       const float* __restrict__ twi, int64_t tiles,
-                       int tiles_per_block, float* __restrict__ part) {
-  extern __shared__ float smem[];
-  constexpr int S = kThreads * KPT;
-  float* sr = smem;
-  float* si = smem + S;
-  float* red_r = si + S;                      // [kWarps]
-  float* red_i = red_r + kWarps;
-  float* mean_r = red_i + kWarps;             // [S / 256]
-  float* mean_i = mean_r + S / 256;
-  const int B = S >> log2n;                   // segments per tile
-  const int P = n / KPT;                      // threads per segment, >= 32
-  float acc[KPT];
-#pragma unroll
-  for (int k = 0; k < KPT; ++k) acc[k] = 0.f;
+constexpr int kHalf = kPoints / 2;
+constexpr int kMinThreads = 128;        // kernels/fft._PSD_MIN_THREADS
+constexpr int kRegs = 128;              // register cap a thread, at most
+constexpr bool kCarry = true;
+constexpr int kWindowRegsUpTo = 1024;   // window in registers up to n
+constexpr int kReduceGroups = 32;
 
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tiles_per_block;
-  const int64_t t1 = t0 + tiles_per_block < tiles ? t0 + tiles_per_block
-                                                  : tiles;
-  for (int64_t t = t0; t < t1; ++t) {
-    const int64_t row0 = t * B;
+__host__ __device__ constexpr int block_threads(int n) {
+  return n / kPoints > kMinThreads ? n / kPoints : kMinThreads;
+}
+
+__host__ __device__ constexpr int groups(int n) {
+  return block_threads(n) / (n / kPoints);
+}
+
+// Registers a thread at kRegs or what one block of the size leaves.
+__host__ __device__ constexpr int reg_cap(int n) {
+  return 65536 / block_threads(n) < kRegs ? 65536 / block_threads(n)
+                                          : kRegs;
+}
+
+__host__ __device__ constexpr int min_blocks(int n) {
+  return 65536 / (block_threads(n) * reg_cap(n));
+}
+
+// At 64 registers the sums live in shared memory, the window is read
+// through L1 and nothing is carried.
+__host__ __device__ constexpr bool smem_sums(int n) {
+  return reg_cap(n) <= 64;
+}
+
+__host__ __device__ constexpr int smem_bytes(int n) {
+  return static_cast<int>(sizeof(float2)) * groups(n) * pad(n) +
+         static_cast<int>(sizeof(float)) *
+             (2 * (block_threads(n) / 32) +
+              (smem_sums(n) ? kPoints * block_threads(n) : 0));
+}
+
+struct PsdArgs {
+  const float* xr;
+  const float* xi;
+  int64_t rows;
+  int64_t row_stride;
+  const float* win;
+  const float* row_w;
+  int demean;
+  const float2* tw;
+  int per_run;
+  float* part;
+};
+
+template <int N>
+__global__ void __launch_bounds__(block_threads(N), min_blocks(N))
+    psd_partial_kernel(const PsdArgs p) {
+  constexpr int THREADS = block_threads(N);
+  constexpr int T = N / kPoints;              // threads a segment
+  constexpr int G = THREADS / T;              // segment groups a block
+  constexpr int WARPS = THREADS / 32;
+  constexpr int W = T / 32;                   // warps a segment, if >= 1
+  constexpr int LANES = T < 32 ? T : 32;      // lanes a segment in a warp
+  constexpr int LD = pad(N);                  // float2 between regions
+  constexpr bool kSmemSums = smem_sums(N);
+  // Above 1024 points the window's 16 registers would spill: it is read
+  // through L1 there.
+  constexpr bool kWinRegs = N <= kWindowRegsUpTo && !kSmemSums;
+  extern __shared__ float2 smem[];
+  float* red = reinterpret_cast<float*>(smem + G * LD);   // [2][WARPS]
+  float* sums = red + 2 * WARPS;              // [16][THREADS], kSmemSums
+  const int t = threadIdx.x % T;
+  const int g = threadIdx.x / T;
+  const int64_t s0 =
+      (static_cast<int64_t>(blockIdx.x) * G + g) * p.per_run;
+  const bool carry = kCarry && !kSmemSums && 2 * p.row_stride == N;
+
+  float wv[kWinRegs ? kPoints : 1];
+  if constexpr (kWinRegs) {
 #pragma unroll
-    for (int k = 0; k < KPT; ++k) {
-      const int e = threadIdx.x + k * kThreads;
-      const int64_t r = row0 + (e >> log2n);
-      float vr = 0.f, vi = 0.f;
-      if (r < rows) {
-        const int64_t a = r * row_stride + (e & (n - 1));
-        const float w = row_w ? row_w[r] : 1.f;
-        vr = xr[a] * w;
-        vi = xi[a] * w;
-      }
-      sr[e] = vr;
-      si[e] = vi;
-    }
-    __syncthreads();
-    if (demean) {
-      // Thread tid sums KPT consecutive samples of segment tid / P,
-      // starting at a rotated offset to spread the shared-memory banks.
-      const int seg = threadIdx.x / P;
-      const int c0 = seg * n + (threadIdx.x % P) * KPT;
-      float s_r = 0.f, s_i = 0.f;
-#pragma unroll
-      for (int k = 0; k < KPT; ++k) {
-        const int c = c0 + ((k + threadIdx.x) & (KPT - 1));
-        s_r += sr[c];
-        s_i += si[c];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        s_r += __shfl_xor_sync(0xffffffffu, s_r, o);
-        s_i += __shfl_xor_sync(0xffffffffu, s_i, o);
-      }
-      if ((threadIdx.x & 31) == 0) {
-        red_r[threadIdx.x >> 5] = s_r;
-        red_i[threadIdx.x >> 5] = s_i;
-      }
-      __syncthreads();
-      if (threadIdx.x < B) {
-        const int W = P / 32;                 // warps per segment
-        float m_r = 0.f, m_i = 0.f;
-        for (int w = 0; w < W; ++w) {
-          m_r += red_r[threadIdx.x * W + w];
-          m_i += red_i[threadIdx.x * W + w];
-        }
-        mean_r[threadIdx.x] = m_r / static_cast<float>(n);
-        mean_i[threadIdx.x] = m_i / static_cast<float>(n);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k = 0; k < KPT; ++k) {
-      const int e = threadIdx.x + k * kThreads;
-      const float w = win[e & (n - 1)];
-      const float m_r = demean ? mean_r[e >> log2n] : 0.f;
-      const float m_i = demean ? mean_i[e >> log2n] : 0.f;
-      sr[e] = (sr[e] - m_r) * w;
-      si[e] = (si[e] - m_i) * w;
-    }
-    __syncthreads();
-    fft_smem<KPT>(sr, si, n, log2n, n, twr, twi, 1.f);
-#pragma unroll
-    for (int k = 0; k < KPT; ++k) {
-      const int e = threadIdx.x + k * kThreads;
-      acc[k] += sr[e] * sr[e] + si[e] * si[e];
-    }
-    __syncthreads();
+    for (int q = 0; q < kPoints; ++q) wv[q] = __ldg(p.win + t + T * q);
   }
-  // Rows of the tile -> one partial row, bin by bin in row order.
+  float acc[kSmemSums ? 1 : kPoints];
 #pragma unroll
-  for (int k = 0; k < KPT; ++k) sr[threadIdx.x + k * kThreads] = acc[k];
-  __syncthreads();
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    float s = 0.f;
-    for (int b = 0; b < B; ++b) s += sr[b * n + c];
-    part[static_cast<int64_t>(blockIdx.x) * n + c] = s;
+  for (int q = 0; q < kPoints; ++q) {
+    if constexpr (kSmemSums) {
+      sums[threadIdx.x + THREADS * q] = 0.f;
+    } else {
+      acc[q] = 0.f;
+    }
+  }
+  // vr/vi: this segment's raw points; cr/ci: its raw upper half, the next
+  // segment's lower half.
+  float vr[kPoints], vi[kPoints];
+  float cr[kHalf], ci[kHalf];
+  for (int i = 0; i < p.per_run; ++i) {
+    const int64_t s = s0 + i;
+    const bool ok = s < p.rows;
+    const float* a = p.xr + s * p.row_stride + t;
+    const float* b = p.xi + s * p.row_stride + t;
+    if (carry && i > 0) {
+#pragma unroll
+      for (int q = 0; q < kHalf; ++q) {
+        vr[q] = cr[q];
+        vi[q] = ci[q];
+        vr[q + kHalf] = ok ? __ldg(a + T * (q + kHalf)) : 0.f;
+        vi[q + kHalf] = ok ? __ldg(b + T * (q + kHalf)) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kPoints; ++q) {
+        vr[q] = ok ? __ldg(a + T * q) : 0.f;
+        vi[q] = ok ? __ldg(b + T * q) : 0.f;
+      }
+    }
+    if (carry) {
+#pragma unroll
+      for (int q = 0; q < kHalf; ++q) {
+        cr[q] = vr[q + kHalf];
+        ci[q] = vi[q + kHalf];
+      }
+    }
+    if (p.row_w) {
+      const float w = ok ? __ldg(p.row_w + s) : 0.f;
+#pragma unroll
+      for (int q = 0; q < kPoints; ++q) {
+        vr[q] *= w;
+        vi[q] *= w;
+      }
+    }
+    if (p.demean) {
+      float sr = 0.f, si = 0.f;
+#pragma unroll
+      for (int q = 0; q < kPoints; ++q) {
+        sr += vr[q];
+        si += vi[q];
+      }
+      // an xor tree gives every lane the same bits (a + b == b + a)
+#pragma unroll
+      for (int o = LANES / 2; o > 0; o >>= 1) {
+        sr += __shfl_xor_sync(0xffffffffu, sr, o);
+        si += __shfl_xor_sync(0xffffffffu, si, o);
+      }
+      if constexpr (W > 1) {
+        // red is written again only after this segment's exchange
+        // barriers, so one barrier here suffices
+        if ((threadIdx.x & 31) == 0) {
+          red[threadIdx.x >> 5] = sr;
+          red[WARPS + (threadIdx.x >> 5)] = si;
+        }
+        __syncthreads();
+        sr = 0.f;
+        si = 0.f;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          sr += red[g * W + k];
+          si += red[WARPS + g * W + k];
+        }
+      }
+      const float mr = sr * (1.f / N), mi = si * (1.f / N);
+#pragma unroll
+      for (int q = 0; q < kPoints; ++q) {
+        vr[q] -= mr;
+        vi[q] -= mi;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPoints; ++q) {
+      float w;
+      if constexpr (kWinRegs) {
+        w = wv[q];
+      } else {
+        w = __ldg(p.win + t + T * q);
+      }
+      vr[q] *= w;
+      vi[q] *= w;
+    }
+    fft_reg<N, true>(vr, vi, t, smem + g * LD, p.tw);
+    if (ok) {
+#pragma unroll
+      for (int q = 0; q < kPoints; ++q) {
+        const float e = vr[q] * vr[q] + vi[q] * vi[q];
+        if constexpr (kSmemSums) {
+          sums[threadIdx.x + THREADS * q] += e;
+        } else {
+          acc[q] += e;
+        }
+      }
+    }
+  }
+  // The groups' sums -> one partial row, bin by bin in group order.  The
+  // last exchange ended in a barrier, so each group's region is free.
+  const auto total = [&](int q) {
+    if constexpr (kSmemSums) {
+      return sums[threadIdx.x + THREADS * q];
+    } else {
+      return acc[q];
+    }
+  };
+  float* out = p.part + static_cast<int64_t>(blockIdx.x) * N;
+  if constexpr (G == 1) {
+#pragma unroll
+    for (int q = 0; q < kPoints; ++q) out[t + T * q] = total(q);
+  } else {
+    float* own = reinterpret_cast<float*>(smem + g * LD);
+#pragma unroll
+    for (int q = 0; q < kPoints; ++q) own[t + T * q] = total(q);
+    __syncthreads();
+    for (int c = threadIdx.x; c < N; c += THREADS) {
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        v += reinterpret_cast<const float*>(smem + k * LD)[c];
+      }
+      out[c] = v;
+    }
   }
 }
 
-// out[c] = sum over the G partial rows of part[:, c]: kReduceGroups
+// out[c] = sum over the P partial rows of part[:, c]: kReduceGroups
 // threads per bin each add a fixed contiguous range of rows in order,
 // then the first adds the groups' sums in order.
-__global__ void psd_reduce_kernel(const float* __restrict__ part, int G,
-                                  int n, float* __restrict__ out) {
-  __shared__ float red[kReduceGroups][32];
+__global__ void __launch_bounds__(32 * kReduceGroups)
+    psd_reduce_kernel(const float* __restrict__ part, int P, int n,
+                      float* __restrict__ out) {
+  __shared__ float red[kReduceGroups][33];
   const int c = blockIdx.x * 32 + threadIdx.x;
-  const int per = (G + kReduceGroups - 1) / kReduceGroups;
+  const int per = (P + kReduceGroups - 1) / kReduceGroups;
   const int g0 = threadIdx.y * per;
-  const int g1 = g0 + per < G ? g0 + per : G;
+  const int g1 = g0 + per < P ? g0 + per : P;
   float s = 0.f;
+#pragma unroll 8
   for (int g = g0; g < g1; ++g) s += part[static_cast<int64_t>(g) * n + c];
   red[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0) {
-    float t = 0.f;
-    for (int y = 0; y < kReduceGroups; ++y) t += red[y][threadIdx.x];
-    out[c] = t;
+    float v = 0.f;
+#pragma unroll
+    for (int y = 0; y < kReduceGroups; ++y) v += red[y][threadIdx.x];
+    out[c] = v;
   }
 }
 
-template <int KPT>
-int launch(const float* xr, const float* xi, int64_t rows,
-           int64_t row_stride, int n, int log2n, const float* win,
-           const float* row_w, int demean, const float* twr,
-           const float* twi, float* part, int G, int tiles_per_block,
-           float* out, cudaStream_t s) {
-  constexpr int S = kThreads * KPT;
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (2 * S + 2 * kWarps + 2 * (S / 256));
+template <int N>
+int launch(const PsdArgs& a, int blocks, float* out, cudaStream_t s) {
+  constexpr int smem = smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
-      psd_partial_kernel<KPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      psd_partial_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t B = S / n;
-  const int64_t tiles = (rows + B - 1) / B;
-  if (static_cast<int64_t>(G - 1) * tiles_per_block >= tiles ||
-      static_cast<int64_t>(G) * tiles_per_block < tiles) {
+  const int64_t runs = (a.rows + a.per_run - 1) / a.per_run;
+  if (blocks != (runs + groups(N) - 1) / groups(N)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  psd_partial_kernel<KPT><<<G, kThreads, smem, s>>>(
-      xr, xi, rows, row_stride, n, log2n, win, row_w, demean, twr, twi,
-      tiles, tiles_per_block, part);
+  psd_partial_kernel<N><<<blocks, block_threads(N), smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  psd_reduce_kernel<<<n / 32, dim3(32, kReduceGroups), 0, s>>>(part, G, n,
-                                                               out);
+  psd_reduce_kernel<<<N / 32, dim3(32, kReduceGroups), 0, s>>>(
+      a.part, blocks, N, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry for ctypes.  Pointers on the current device: xr/xi hold `rows`
-// segments of n samples, segment r at r * row_stride; win [n]; row_w
-// [rows] or null; twr/twi the n-entry table W_n^k; part [G, n] scratch;
-// out [n].  The wrapper picks tiles_per_block and G = ceil(tiles /
-// tiles_per_block) with tiles = ceil(rows / (max(n, 4096) / n)).  n a power
-// of two in 256..16384.  Launches on `stream` without synchronising;
-// returns cudaGetLastError() (or the error that stopped the launch).
+// segments of n samples, segment r at r * row_stride floats (unit sample
+// stride; segments may overlap); win [n]; row_w [rows] or null; tw the
+// n-entry table W_n^k as (re, im) pairs; part [blocks, n] scratch; out
+// [n].  per_run segments a run and blocks = ceil(ceil(rows / per_run) /
+// G), G = max(128, n / 16) / (n / 16) runs a block, as
+// kernels/fft.psd_partition picks them.  n a power of two in 256..16384.
+// Launches on `stream` without synchronising; returns cudaGetLastError()
+// (or the error that stopped the launch).
 extern "C" int psd_launch(const void* xr, const void* xi, int64_t rows,
                           int64_t row_stride, int n, const void* win,
-                          const void* row_w, int demean, const void* twr,
-                          const void* twi, void* part, int G,
-                          int tiles_per_block, void* out, void* stream) {
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
-  if (rows < 1 || row_stride < 1 || n < 256 || n > 16384 ||
-      (1 << log2n) != n || G < 1 || tiles_per_block < 1) {
+                          const void* row_w, int demean, const void* tw,
+                          int per_run, void* part, int blocks, void* out,
+                          void* stream) {
+  if (rows < 1 || row_stride < 1 || per_run < 1 || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* a = static_cast<const float*>(xr);
-  const auto* b = static_cast<const float*>(xi);
-  const auto* w = static_cast<const float*>(win);
-  const auto* rw = static_cast<const float*>(row_w);
-  const auto* t_r = static_cast<const float*>(twr);
-  const auto* t_i = static_cast<const float*>(twi);
-  auto* p = static_cast<float*>(part);
+  const PsdArgs a{static_cast<const float*>(xr),
+                  static_cast<const float*>(xi),
+                  rows,
+                  row_stride,
+                  static_cast<const float*>(win),
+                  static_cast<const float*>(row_w),
+                  demean,
+                  static_cast<const float2*>(tw),
+                  per_run,
+                  static_cast<float*>(part)};
   auto* o = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 4096) {
-    return launch<8>(a, b, rows, row_stride, n, log2n, w, rw, demean, t_r,
-                     t_i, p, G, tiles_per_block, o, s);
+  switch (n) {
+    case 256: return launch<256>(a, blocks, o, s);
+    case 512: return launch<512>(a, blocks, o, s);
+    case 1024: return launch<1024>(a, blocks, o, s);
+    case 2048: return launch<2048>(a, blocks, o, s);
+    case 4096: return launch<4096>(a, blocks, o, s);
+    case 8192: return launch<8192>(a, blocks, o, s);
+    case 16384: return launch<16384>(a, blocks, o, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n == 8192) {
-    return launch<16>(a, b, rows, row_stride, n, log2n, w, rw, demean, t_r,
-                      t_i, p, G, tiles_per_block, o, s);
-  }
-  return launch<32>(a, b, rows, row_stride, n, log2n, w, rw, demean, t_r,
-                    t_i, p, G, tiles_per_block, o, s);
 }

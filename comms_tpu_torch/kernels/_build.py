@@ -184,8 +184,8 @@ def _bind(lib) -> None:
     lib.psd_launch.argtypes = [
         ptr, ptr, i64, i64, i32,   # xr, xi, rows, row stride, n
         ptr, ptr, i32,             # window, row weights, demean
-        ptr, ptr,                  # twiddles re, im
-        ptr, i32, i32,             # partial rows, their count, tiles each
+        ptr, i32,                  # twiddles (re, im) pairs, segments a run
+        ptr, i32,                  # partial rows, their count
         ptr, ptr,                  # out [n], cudaStream_t
     ]
     lib.fft_big_stage_a_launch.restype = i32

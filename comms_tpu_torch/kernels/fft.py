@@ -13,19 +13,20 @@ and their plain versions.
   plane swap, ``ifft(z) = swap(fft(swap(z))) / n``, as the JAX callers
   use it.
 * :func:`psd_planar` and :func:`psd_stream_planar` (``csrc/psd.cu``, one
-  kernel with two entries, on the shared-memory FFT of
-  ``csrc/fft_smem.cuh``) replace ``psd_pallas_planar`` and
-  ``psd_stream_pallas_planar``: window * (x - mean) -> FFT -> |.|^2
-  summed over segment rows, or over the 2N/n - 1 segments at 50% overlap
-  of a flat stream.  Both return ``acc[n]`` in natural bin order, summed
-  in a fixed order (no float atomics).
+  kernel with two entries, on the same register FFT with K6's twiddles)
+  replace ``psd_pallas_planar`` and ``psd_stream_pallas_planar``: window
+  * (x - mean) -> FFT -> |.|^2 summed over segment rows, or over the
+  2N/n - 1 segments at 50% overlap of a flat stream.  Each thread group
+  walks a run of consecutive segments (:func:`psd_partition`); at row
+  stride n/2 it keeps the overlapping raw half in registers, so each
+  sample is read from device memory once.  Both return ``acc[n]`` in
+  natural bin order, summed in a fixed order (no float atomics).
 
 Both ``precision`` values of the TPU kernels ("split_bf16", its bf16x3
 DFT matmuls, and "highest") compute in float32 on the CUDA cores here;
-any other value raises.  The twiddle tables W_n^k are made on the host in
-float64 from integer indices and kept on the card
-(:func:`_build.device_constant`): planar for K7 (:func:`twiddles`), as
-(re, im) pairs for the register FFT (:func:`pass_twiddles`).
+any other value raises.  The twiddle table W_n^k of the register FFT is
+made on the host in float64 from integer indices and kept on the card as
+(re, im) pairs (:func:`pass_twiddles`, :func:`_build.device_constant`).
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions for CPU tensors; any other device raises.  ``launches`` counts,
@@ -44,11 +45,19 @@ from comms_tpu_torch.kernels import _build
 
 __all__ = ["fft_planar", "fft_complex", "psd_planar", "psd_stream_planar",
            "fft_plain", "psd_plain", "psd_stream_plain", "rows_per_step",
-           "supported", "twiddles", "pass_twiddles"]
+           "supported", "pass_twiddles", "psd_partition"]
 
 _SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 _PRECISIONS = ("split_bf16", "highest")
-_PSD_BLOCKS = 512              # partial rows of a PSD call, at most
+# K7's run partition (csrc/psd.cu): blocks of max(_PSD_MIN_THREADS, n/16)
+# threads, and runs sized so that all runs together hold about
+# _PSD_RUN_THREADS threads (one wave of 512 threads on each of 132 SMs:
+# longer runs write fewer partial rows) in at least _PSD_MIN_BLOCKS blocks
+# (16384 points: one block of 1024 threads an SM).  Fixed counts: the
+# summation order, and so the bits, do not depend on the card.
+_PSD_MIN_THREADS = 128
+_PSD_RUN_THREADS = 1 << 16
+_PSD_MIN_BLOCKS = 128
 
 # Kernel launches per entry since import (or since a caller reset them).
 launches = {"fft": 0, "psd": 0, "psd_stream": 0}
@@ -67,19 +76,6 @@ def rows_per_step(n: int) -> int:
     return (1 << 17) // int(n)
 
 
-def twiddles(n: int, device) -> torch.Tensor:
-    """[2, n] float32 table (re, im) of W_n^k = e^{-2 pi i k / n} on
-    ``device``, from float64 at the integer index k (made once per size
-    and device)."""
-    return _twiddles_on(int(n), str(torch.device(device)))
-
-
-@functools.lru_cache(maxsize=64)
-def _twiddles_on(n: int, device: str) -> torch.Tensor:
-    w = np.exp((-2j * np.pi / n) * np.arange(n))
-    return _build.device_constant(np.stack([w.real, w.imag]), device)
-
-
 def pass_twiddles(n: int, device) -> torch.Tensor:
     """[n, 2] float32 table of W_n^k as (re, im) pairs on ``device``, from
     float64 at the integer index k: the register FFT's pass twiddles (K6
@@ -91,6 +87,19 @@ def pass_twiddles(n: int, device) -> torch.Tensor:
 def _pass_twiddles_on(n: int, device: str) -> torch.Tensor:
     w = np.exp((-2j * np.pi / n) * np.arange(n))
     return _build.device_constant(np.stack([w.real, w.imag], -1), device)
+
+
+def psd_partition(rows: int, n: int) -> tuple[int, int]:
+    """``(per_run, blocks)`` of a K7 call over ``rows`` segments of n
+    points: each group of n/16 threads walks ``per_run`` consecutive
+    segments (the last run may be short), G = max(128, n/16) / (n/16)
+    groups a block, one partial row a block."""
+    T = int(n) // 16
+    G = max(_PSD_MIN_THREADS, T) // T
+    per_run = -(-int(rows) // max(_PSD_RUN_THREADS // T,
+                                  _PSD_MIN_BLOCKS * G))
+    runs = -(-int(rows) // per_run)
+    return per_run, -(-runs // G)
 
 
 def _check_precision(precision: str) -> None:
@@ -183,21 +192,18 @@ def _launch_psd(entry: str, re, im, w, row_w, demean: bool, n: int):
     ``re.stride(0)`` (unit sample stride)."""
     dev = re.device
     rows, stride = int(re.shape[0]), int(re.stride(0))
-    tile = max(n, 4096) // n
-    tiles = -(-rows // tile)
-    per_block = -(-tiles // _PSD_BLOCKS)
-    G = -(-tiles // per_block)
-    part = torch.empty((G, n), dtype=torch.float32, device=dev)
+    per_run, blocks = psd_partition(rows, n)
+    part = torch.empty((blocks, n), dtype=torch.float32, device=dev)
     out = torch.empty(n, dtype=torch.float32, device=dev)
     lib = _build.load()
-    tw = twiddles(n, dev)
+    tw = pass_twiddles(n, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.psd_launch(
             re.data_ptr(), im.data_ptr(), rows, stride, n, w.data_ptr(),
             row_w.data_ptr() if row_w is not None else None, int(demean),
-            tw[0].data_ptr(), tw[1].data_ptr(), part.data_ptr(), G,
-            per_block, out.data_ptr(), stream)
+            tw.data_ptr(), per_run, part.data_ptr(), blocks,
+            out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"PSD kernel launch failed: CUDA error {rc}")
     launches[entry] += 1
@@ -256,7 +262,7 @@ def psd_stream_planar(re, im, window, n: int = 1024, demean: bool = True,
     overlap: the sum over the 2N/n - 1 segments starting at multiples of
     n/2 of |FFT(w * (x - mean))|^2, natural bin order.  The segments are
     formed by the kernel's addressing: each sample is read from device
-    memory once (its second segment's read is served by the cache).
+    memory once (the overlapping half stays in registers).
     N must be a multiple of ``rows_per_step(n) * n``, as on the TPU."""
     n = int(n)
     if not supported(n):

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from comms_tpu.kernels import fft_big_pallas as JFB
+from comms_tpu.kernels import fft_pallas as JFP
 from comms_tpu.ops import spectrum as jspec
+from comms_tpu_torch.kernels import fft as TFK
 from comms_tpu_torch.kernels import fft_big as TFB
 
 
@@ -218,9 +220,9 @@ def test_stage_a_layout_and_sums_contract(n1, n2):
 
 
 # ---- a host copy of the register FFT's plan (csrc/fft_reg.cuh) and of
-# the lane maps of its callers, fft_big.cu (K10) and fft.cu (K6), kept by
-# hand beside the C++: what the CPU can check of the kernels' index
-# arithmetic.
+# the lane maps of its callers, fft_big.cu (K10), fft.cu (K6) and psd.cu
+# (K7), kept by hand beside the C++: what the CPU can check of the
+# kernels' index arithmetic and summation order.
 
 _POINTS = 16       # fft_reg.cuh kPoints
 _PAD_SHIFT = 4     # fft_reg.cuh kPadShift
@@ -251,11 +253,18 @@ def k6_threads(n: int) -> int:
     return max(128, n // _POINTS)
 
 
+def k7_threads(n: int) -> int:
+    """psd.cu ``block_threads``: max(kMinThreads, n / 16) threads a
+    block, kMinThreads = kernels/fft._PSD_MIN_THREADS."""
+    return max(TFK._PSD_MIN_THREADS, n // _POINTS)
+
+
 def exchange_ld(n: int, stage: str, threads: int) -> int:
     """Stride in float2 between two transforms' exchange regions in a
     block of ``threads``: stage ``"a"`` (lanes over columns, fft_big.cu
-    ``a_ld``), ``"b"`` (16 lanes over one row's points, ``b_ld``) or
-    ``"k6"`` (fft.cu: consecutive lanes over one row's points)."""
+    ``a_ld``), ``"b"`` (16 lanes over one row's points, ``b_ld``), ``"k6"``
+    (fft.cu: consecutive lanes over one row's points) or ``"k7"`` (psd.cu:
+    consecutive lanes over one segment's points)."""
     if stage == "a":
         ct = threads * _POINTS // n
         return _pad(n) + 16 // min(ct, 16)
@@ -265,13 +274,13 @@ def exchange_ld(n: int, stage: str, threads: int) -> int:
 def _lane_map(n: int, stage: str, threads: int):
     """Each thread's (region, t) as the kernels assign them
     (``stage_a_kernel``'s c, t; ``RowLanes``' r, t; ``fft_rows_kernel``'s
-    r, t)."""
+    and ``psd_partial_kernel``'s r or g, t)."""
     tid = np.arange(threads)
     T = n // _POINTS
     if stage == "a":
         ct = threads // T
         return tid % ct, tid // ct
-    if stage == "k6":
+    if stage in ("k6", "k7"):
         return tid // T, tid % T
     rows = threads // T
     return (tid >> 4) % rows, (tid & 15) + 16 * (tid // (16 * rows))
@@ -470,3 +479,184 @@ def test_stage_b_entries_reject_d_in_another_layout(entry):
         with pytest.raises(ValueError, match="sums"):
             TFB.psd_stage_b(d, n1, n2, TFB.sparse_window_bins(w, n1, n2),
                             sums[:, :1])
+
+
+# ---- K7 (csrc/psd.cu): its lane map, its carry and a torch replay of
+# its summation order
+
+_REDUCE_GROUPS = 32      # psd.cu kReduceGroups
+
+
+def k7_smem_bytes(n: int) -> int:
+    """psd.cu ``smem_bytes`` at its defaults (kRegs = 128): the groups'
+    exchange regions, the demean's warp sums and, where one block leaves
+    64 registers a thread (1024 threads at 16384 points), the sums' 16
+    slots a thread."""
+    threads = k7_threads(n)
+    groups = threads * _POINTS // n
+    sums = _POINTS * threads if 65536 // threads <= 64 else 0
+    return 8 * groups * _pad(n) + 4 * (2 * (threads // 32) + sums)
+
+
+def k7_replay(re, im, win, n, stride, rows, row_weights=None, demean=True):
+    """psd.cu's arithmetic in its order, with torch on float32 planes:
+    segment s at s * stride of the flat planes, thread t holding its
+    points t + T q; the row weight, then the mean as the kernel sums it
+    (each thread's 16 points in order, the xor tree over min(T, 32) lanes,
+    a segment's warps in order), subtracted before the window; the
+    register FFT's plan with K6's twiddles (``reg_fft_replay``); |X|^2
+    summed over each run in segment order, a block's runs in group order,
+    the partial rows in _REDUCE_GROUPS contiguous ranges, each in order,
+    then the ranges in order (runs and blocks from ``psd_partition``).
+    Returns acc[n] float32."""
+    T = n // _POINTS
+    per_run, blocks = TFK.psd_partition(rows, n)
+    G = k7_threads(n) // T
+    idx = torch.arange(rows)[:, None] * stride + torch.arange(n)[None, :]
+    xr, xi = re.reshape(-1)[idx], im.reshape(-1)[idx]
+    if row_weights is not None:
+        xr = xr * row_weights[:, None]
+        xi = xi * row_weights[:, None]
+    if demean:
+        def mean(v):
+            v = v.reshape(rows, _POINTS, T)           # [s, q, t]
+            s = torch.zeros(rows, T)
+            for q in range(_POINTS):
+                s = s + v[:, q]
+            o = min(T, 32) // 2
+            while o:
+                s = s + s[:, torch.arange(T) ^ o]
+                o //= 2
+            tot = torch.zeros(rows)
+            for k in range(max(1, T // 32)):
+                tot = tot + s[:, 32 * k]
+            return tot * (1.0 / n)
+        xr = xr - mean(xr)[:, None]
+        xi = xi - mean(xi)[:, None]
+    X = reg_fft_replay(torch.complex(xr * win, xi * win), powers=True)
+    e = X.real * X.real + X.imag * X.imag
+    runs = blocks * G
+    acc = torch.zeros(runs, n)
+    for i in range(per_run):
+        seg = torch.arange(runs) * per_run + i
+        ok = (seg < rows)[:, None]
+        acc = acc + torch.where(ok, e[seg.clamp(max=rows - 1)], 0.0)
+    part = torch.zeros(blocks, n)
+    for k in range(G):
+        part = part + acc.reshape(blocks, G, n)[:, k]
+    per = -(-blocks // _REDUCE_GROUPS)
+    out = torch.zeros(n)
+    for y in range(_REDUCE_GROUPS):
+        s = torch.zeros(n)
+        for g in range(y * per, min(y * per + per, blocks)):
+            s = s + part[g]
+        out = out + s
+    return out
+
+
+def _welch64(x, n, w, stride, weights=None, demean=True):
+    """float64 sum over the segments at ``stride`` of |FFT(w (x - m))|^2."""
+    idx = (np.arange(0, len(x) - n + 1, stride)[:, None]
+           + np.arange(n)[None, :])
+    seg = x.astype(np.complex128)[idx]
+    if weights is not None:
+        seg = seg * weights[:, None]
+    if demean:
+        seg = seg - seg.mean(axis=1, keepdims=True)
+    return (np.abs(np.fft.fft(seg * w, axis=1)) ** 2).sum(0)
+
+
+@pytest.mark.parametrize("n", _REG_SIZES)
+def test_k7_carry_identity(n):
+    # At stride n/2 thread t's points q + 8 of segment s are its points q
+    # of segment s + 1 (psd.cu's carry), and a run's loads (16 a plane for
+    # its first segment, the 8 new ones for each later segment) read each
+    # sample of the run once.
+    T = n // _POINTS
+    t, q = np.arange(T)[:, None], np.arange(_POINTS)[None, :]
+
+    def points(s):
+        return s * (n // 2) + t + T * q
+
+    for s in (0, 1, 7):
+        np.testing.assert_array_equal(points(s)[:, 8:], points(s + 1)[:, :8])
+    s0, run = 3, 8
+    loads = np.concatenate([points(s0).ravel()] + [
+        points(s)[:, 8:].ravel() for s in range(s0 + 1, s0 + run)])
+    np.testing.assert_array_equal(
+        np.sort(loads), np.arange(s0 * n // 2, (s0 + run + 1) * n // 2))
+
+
+@pytest.mark.parametrize("n", _REG_SIZES)
+def test_k7_exchange_is_bank_conflict_free(n):
+    # K7 (psd.cu): consecutive lanes on consecutive points of one segment
+    # (two segments a warp at 256 points), regions pad(n) apart, blocks of
+    # max(128, n / 16) threads; every exchange of the 256..16384 plans is
+    # conflict-free, and the block's shared memory fits.
+    threads = k7_threads(n)
+    assert threads * _POINTS % n == 0 and threads <= 1024
+    assert exchange_bank_ways(n, "k7", threads) == 1
+    assert k7_smem_bytes(n) <= 227 * 1024
+
+
+@pytest.mark.parametrize("n", _REG_SIZES)
+def test_k7_partition_covers_every_segment_once(n):
+    # psd_partition: runs of per_run consecutive segments, G runs a block,
+    # no empty block; at the main path's 16,777,216 samples every size
+    # has runs of 8 segments or more, and the runs hold more than half
+    # of _PSD_RUN_THREADS threads.
+    G = k7_threads(n) * _POINTS // n
+    for rows in (1, 2, 255, 2 * (1 << 24) // n - 1):
+        per_run, blocks = TFK.psd_partition(rows, n)
+        runs = -(-rows // per_run)
+        assert runs * per_run >= rows > (runs - 1) * per_run
+        assert blocks == -(-runs // G)
+        assert (blocks - 1) * G * per_run < rows
+    assert per_run >= 8
+    assert 2 * runs * (n // _POINTS) > TFK._PSD_RUN_THREADS
+
+
+@pytest.mark.parametrize("n, run_threads", [(256, None), (1024, None),
+                                            (1024, 1 << 10)])
+def test_k7_replay_matches_jax_stream_kernel(n, run_threads, monkeypatch):
+    # The kernel's summation order at stride n/2 (with the package's
+    # partition, and with runs of 16 segments) against the JAX stream
+    # kernel in interpret mode and a float64 oracle.
+    if run_threads:
+        monkeypatch.setattr(TFK, "_PSD_RUN_THREADS", run_threads)
+        monkeypatch.setattr(TFK, "_PSD_MIN_BLOCKS", 1)
+    N = TFK.rows_per_step(n) * n
+    rng = np.random.default_rng(n + 3)
+    x = _cx(rng, (N,), offset=0.3 - 0.2j)
+    w = jspec.hann(n).astype(np.float32)
+    want = np.asarray(JFP.psd_stream_pallas_planar(
+        x.real.copy(), x.imag.copy(), w, n=n, interpret=True))
+    got = k7_replay(_t(x.real), _t(x.imag), torch.from_numpy(w), n, n // 2,
+                    2 * N // n - 1).numpy()
+    assert _relmax(got, _welch64(x, n, w, n // 2)) < 2e-5
+    assert _relmax(got, want) < 2e-5
+    port = TFK.psd_stream_planar(_t(x.real), _t(x.imag), w, n).numpy()
+    assert _relmax(got, port) < 2e-5
+
+
+@pytest.mark.parametrize("n, weighted, demean", [(256, True, True),
+                                                 (1024, True, False),
+                                                 (1024, False, True)])
+def test_k7_replay_matches_jax_rows_kernel(n, weighted, demean):
+    # Segment rows at stride n (no carry), with and without row weights
+    # and demean, against the JAX row kernel in interpret mode.
+    rows = 37 if n == 256 else 9
+    rng = np.random.default_rng(n + rows)
+    x = _cx(rng, (rows, n), offset=0.3 - 0.2j)
+    w = jspec.hann(n).astype(np.float32)
+    wts = (np.resize(np.array([1, 0, 1, 1], np.float32), rows)
+           if weighted else None)
+    want = np.asarray(JFP.psd_pallas_planar(
+        x.real.copy(), x.imag.copy(), w, n=n, row_weights=wts,
+        demean=demean, interpret=True))
+    got = k7_replay(_t(x.real), _t(x.imag), torch.from_numpy(w), n, n, rows,
+                    None if wts is None else torch.from_numpy(wts),
+                    demean).numpy()
+    ref = _welch64(x.reshape(-1), n, w, n, wts, demean)
+    assert _relmax(got, ref) < 2e-5
+    assert _relmax(got, want) < 2e-5

@@ -10,7 +10,9 @@ runs there on its own, without the repository's conftest:
 Without a CUDA device the tests skip: the kernels have no CPU mode.
 Bounds, relative to the largest magnitude: 1e-5 for FFT outputs and
 stage A, 2e-5 for PSDs (the JAX tests' bounds); the plain versions are
-cuFFT in float32, so both sides carry float32 rounding.
+cuFFT in float32, so both sides carry float32 rounding.  K7 on streams
+of many segments is also held bin by bin (each bin's error relative to
+that bin) at 2e-5, against the plain version and a float64 oracle.
 """
 
 import numpy as np
@@ -33,6 +35,11 @@ def _card():
 
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def _bin(a, b):
+    """The largest error of a PSD bin relative to that bin of ``b``."""
+    return float(((a.to(b.dtype) - b).abs() / b.abs()).max())
 
 
 def _planes(shape, seed, offset=0.0):
@@ -102,7 +109,7 @@ def test_psd_rows_match_plain(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 1024, 16384])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192, 16384])
 def test_psd_stream_matches_plain_and_rows(n):
     _card()
     N = 3 * TFK.rows_per_step(n) * n
@@ -112,6 +119,7 @@ def test_psd_stream_matches_plain_and_rows(n):
     got = TFK.psd_stream_planar(re, im, win, n)
     again = TFK.psd_stream_planar(re, im, win, n)
     want = TFK.psd_stream_plain(re, im, win, n)
+    f64 = TFK.psd_stream_plain(re.double(), im.double(), win, n)
     rows = TFK.psd_planar(re.unfold(0, n, n // 2), im.unfold(0, n, n // 2),
                           win, n)
     torch.cuda.synchronize()
@@ -119,6 +127,99 @@ def test_psd_stream_matches_plain_and_rows(n):
     assert torch.equal(got, again)             # fixed summation order
     assert torch.equal(got, rows)              # one kernel, two entries
     assert _rel(got, want) < TOL_PSD
+    assert _bin(got, want) < TOL_PSD
+    assert _bin(got, f64) < TOL_PSD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+def test_psd_part_filled_runs_and_blocks(n):
+    # One segment; one segment more than a full set of runs (runs of two,
+    # the last run and block part-filled), read with the carry (an unfold
+    # view) and without it (contiguous rows); and the stream at exactly
+    # one rows_per_step(n) * n samples.
+    _card()
+    win = tspec.hann(n)
+    T = n // 16
+    full = max(TFK._PSD_RUN_THREADS // T,
+               TFK._PSD_MIN_BLOCKS * (max(TFK._PSD_MIN_THREADS, T) // T))
+    assert TFK.psd_partition(full, n)[0] == 1
+    assert TFK.psd_partition(full + 1, n)[0] == 2
+    for rows in (1, full + 1):
+        re, im = _planes((rows * n,), rows + n)
+        views = ((re.unfold(0, n, n // 2)[:rows],
+                  im.unfold(0, n, n // 2)[:rows]),
+                 (re.view(rows, n), im.view(rows, n)))
+        for r, i in views:
+            got = TFK.psd_planar(r, i, win, n)
+            want = TFK.psd_plain(r.contiguous(), i.contiguous(), win)
+            torch.cuda.synchronize()
+            assert _rel(got, want) < TOL_PSD, (rows, r.stride())
+    N = TFK.rows_per_step(n) * n
+    re, im = _planes((N,), 5 * n, offset=-0.2)
+    got = TFK.psd_stream_planar(re, im, win, n)
+    rows = TFK.psd_planar(re.unfold(0, n, n // 2), im.unfold(0, n, n // 2),
+                          win, n)
+    want = TFK.psd_stream_plain(re, im, win, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows)
+    assert _rel(got, want) < TOL_PSD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
+def test_psd_rows_at_other_strides(n):
+    # Row strides other than n/2 take the 16-point load: rows at stride n,
+    # at stride n/4 (75% overlap) and rows of a wider plane; with row
+    # weights that hold zeros, and with demean off.
+    _card()
+    rows = 9
+    base, base_i = _planes((rows, 3 * n), 11 * n, offset=0.3)
+    flat, flat_i = base.reshape(-1), base_i.reshape(-1)
+    win = tspec.hann(n)
+    wts = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1, 0], dtype=torch.float32,
+                       device="cuda")
+    views = {"n": (flat[:rows * n].view(rows, n),
+                   flat_i[:rows * n].view(rows, n)),
+             "n/4": (flat.unfold(0, n, n // 4)[:rows],
+                     flat_i.unfold(0, n, n // 4)[:rows]),
+             "wider": (base[:, n:2 * n], base_i[:, n:2 * n])}
+    for name, (r, i) in views.items():
+        for rw, demean in ((None, True), (wts, True), (wts, False),
+                           (None, False)):
+            got = TFK.psd_planar(r, i, win, n, row_weights=rw,
+                                 demean=demean)
+            again = TFK.psd_planar(r, i, win, n, row_weights=rw,
+                                   demean=demean)
+            rc, ic = r.contiguous(), i.contiguous()
+            want = TFK.psd_plain(rc, ic, win, rw, demean)
+            f64 = TFK.psd_plain(rc.double(), ic.double(), win,
+                                None if rw is None else rw.double(), demean)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), name
+            assert _rel(got, want) < TOL_PSD, (name, rw is None, demean)
+            assert _rel(got.double(), f64) < TOL_PSD, (name, demean)
+
+
+@pytest.mark.cuda
+def test_psd_demeans_a_large_offset():
+    # An offset of 100 on both planes, demean on: the mean leaves each
+    # segment before the window and the FFT, so every bin stays within
+    # 2e-5 of float64 (1023 segments of 1024 points).
+    _card()
+    n = 1024
+    N = 4 * TFK.rows_per_step(n) * n
+    g = torch.Generator(device="cuda")
+    g.manual_seed(100)
+    x = torch.randn(2, N, generator=g, device="cuda")
+    re, im = x[0] + 100.0, x[1] - 100.0
+    win = tspec.hann(n)
+    got = TFK.psd_stream_planar(re, im, win, n)
+    want = TFK.psd_stream_plain(re, im, win, n)
+    f64 = TFK.psd_stream_plain(re.double(), im.double(), win, n)
+    torch.cuda.synchronize()
+    assert _bin(got, f64) < TOL_PSD
+    assert _bin(got, want) < TOL_PSD
 
 
 def _layouts(re, im, n1, n2):

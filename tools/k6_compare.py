@@ -31,6 +31,7 @@ JSON; the exit code is 1 if a check failed.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -49,6 +50,18 @@ SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 VARIANTS = {"table_twiddles": ("fft_reg<N, true>", "fft_reg<N, false>")}
 SAMPLES = 1 << 24
 TOL = 1e-5
+
+
+@functools.lru_cache(maxsize=16)
+def planar_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """[2, n] float32 table (re, im) of W_n^k = e^{-2 pi i k / n} on
+    ``device``, from float64 at the integer index k, made once per size
+    and device: the planar tables that the shared-memory kernels before
+    the register FFT took (the earlier K6 here, the earlier K7 in
+    tools/k7_compare.py)."""
+    w = np.exp((-2j * np.pi / n) * np.arange(n))
+    return torch.from_numpy(np.stack([w.real, w.imag]).astype(
+        np.float32)).to(device)
 
 
 def ptxas_lines(log: str, pattern: str):
@@ -127,7 +140,7 @@ def main(before_dir: Path) -> int:
         """One launch of the earlier K6 or a variant into yr, yi."""
         s = torch.cuda.current_stream().cuda_stream
         if k == "before":
-            tw = SK.twiddles(n, xr.device)
+            tw = planar_twiddles(n, xr.device)
             rc = libs[k].fft_launch(xr.data_ptr(), xi.data_ptr(),
                                     xr.shape[0], n, tw[0].data_ptr(),
                                     tw[1].data_ptr(), scale, yr.data_ptr(),
