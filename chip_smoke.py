@@ -38,7 +38,8 @@ Phases (each raises on failure, so any failure exits non-zero):
 7. kernel and plain-version times at the main paths' shapes (CUDA
    events around calls queued behind a spin kernel, so they time the
    device and not the wrapper's host code), each beside the card's name
-   and power limit;
+   and power limit, and a ``torch.profiler`` split of 8 served FM blocks
+   (the device's busy share and its time by operation);
 8. QPSK: a synthetic capture of 33,554,432 samples (2^25, bench.py's
    capture), the FIR kernel (the matched filter's 32 real taps, and 257
    complex taps from a mid-stream context), the symbol kernel's three
@@ -505,7 +506,10 @@ def fm_receiver_phases(dev, card: str) -> dict:
         fail(f"main path launched the kernel {main_launches} times, "
              f"expected {expected}")
 
-    # ---- 7. times at the full block
+    # ---- 7. times at the full block, and where a served block's device
+    # time goes
+    profile_served(lambda: serve(dev_blocks, SERVE_BLOCKS), card,
+                   f"{SERVE_BLOCKS} served FM blocks (device-resident)")
     ms = cuda_ms(lambda: K.fm_chain_fused(re1, im1, ctx_mid, taps, taps))
     plain_ms = cuda_ms(lambda: K.fm_chain_plain(re1, im1, ctx_mid, taps,
                                                 taps))
@@ -2369,7 +2373,8 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")
     print_ptxas_report(_build)
-    print_ptxas_kernels(_build, ("fir_kernel", "qpsk_sym_kernel",
+    print_ptxas_kernels(_build, ("fm_chain_kernel", "fir_kernel",
+                                 "qpsk_sym_kernel",
                                  "qpsk_panel_tf32x3_kernel",
                                  "qpsk_panel_chunk_sum_kernel",
                                  "panel_reduce_kernel", "fft_rows_kernel",

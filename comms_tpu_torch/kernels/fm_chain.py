@@ -11,11 +11,18 @@ no state returned (the model recomputes it from the raw tail).
 
 The kernel, ``csrc/fm_chain.cu``, replaces the TPU kernel
 ``comms_tpu/kernels/fm_chain_pallas.py::fm_chain_fused``.  On the H100
-it reads 2 bytes and does ~25 float32 multiply-adds per input sample,
-so memory and the CUDA cores bound it about equally; its design keeps
-every intermediate in shared memory (one thread block per tile of 128
-audio outputs, each tile reloading its own halo) so that device memory
-sees the u8 planes and the audio once.  The source's header says more.
+it reads 2 bytes and does ~28 float32 multiply-adds per input sample:
+its bound is the CUDA cores' FMA rate (0.025 ms at N = 26,214,400,
+against 0.017 ms of bytes).  Persistent thread blocks walk tiles of
+256 audio outputs (64 for calls too small to fill the card), keep every
+intermediate in shared memory, copy the next tile's u8 window in
+(``cp.async``) while the current one computes, convert bytes without a
+division (exact for all 256 values), and run both FIRs in register-
+blocked windows: a thread computes 7 (then 3) consecutive outputs of
+one plane from five rotating windows, one shared-memory load per 4.7
+FMAs.  Each output's FMA chain keeps its order, so the audio is
+bit-identical to the first (one output a thread) form of the kernel.
+The source's header says more.
 
 :func:`fm_chain_fused` launches the kernel for CUDA tensors and runs
 :func:`fm_chain_plain` for CPU tensors; any other device raises.  It
