@@ -39,7 +39,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    events around calls queued behind a spin kernel, so they time the
    device and not the wrapper's host code), each beside the card's name
    and power limit, and a ``torch.profiler`` split of 8 served FM blocks
-   (the device's busy share and its time by operation);
+   and of 8 served band-monitor blocks (the device's busy share and its
+   time by operation: K1, K9, the sink's device-to-host copy);
 8. QPSK: a synthetic capture of 33,554,432 samples (2^25, bench.py's
    capture), the FIR kernel (the matched filter's 32 real taps, and 257
    complex taps from a mid-stream context), the symbol kernel's three
@@ -847,7 +848,11 @@ def band_monitor_phases(dev, card: str) -> list:
     if main_counts != want_counts:
         fail(f"main path launches {main_counts}, expected {want_counts}")
 
-    # ---- 7. times at the main paths' shapes
+    # ---- 7. where a served block's device time goes (after the counts:
+    # these blocks launch K9 again), then times at the main paths' shapes
+    profile_served(lambda: serve(dev_blocks, SERVE_BLOCKS), card,
+                   f"{SERVE_BLOCKS} served band-monitor blocks (K={BM_K}, "
+                   f"device-resident)")
     mid64 = (blk(re64, 0)[-CK.CTX_SAMPLES:].clone(),
              blk(im64, 0)[-CK.CTX_SAMPLES:].clone())
     bm_state = BM.band_monitor_planar(
@@ -2373,7 +2378,8 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")
     print_ptxas_report(_build)
-    print_ptxas_kernels(_build, ("fm_chain_kernel", "fir_kernel",
+    print_ptxas_kernels(_build, ("fm_chain_kernel", "band_monitor_kernel",
+                                 "fir_kernel",
                                  "qpsk_sym_kernel",
                                  "qpsk_panel_tf32x3_kernel",
                                  "qpsk_panel_chunk_sum_kernel",

@@ -143,8 +143,8 @@ def _bind(lib) -> None:
     lib.band_monitor_launch.argtypes = [
         ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, ctx length
         ptr, ptr, i32,             # halo re, halo im, halo frames
-        ptr, ptr, i32, i32,        # C, roots, K, M
-        ptr, i32, i32, i64,        # audio taps, their count, dec, frames
+        ptr, ptr, ptr, i32, i32,   # C, roots (host), C (device), K, M
+        ptr, i32, i32, i64, i32,   # audio taps, count, dec, frames, run
         ptr, ptr, ptr, ptr, ptr,   # audio, halo out re/im, ctx out re/im
         ptr,                       # cudaStream_t
     ]

@@ -16,13 +16,18 @@ tail: ``halo_rows(K, T)`` rows of 128, which is the last
 
 The kernel, ``csrc/band_monitor.cu``, replaces the TPU kernel
 ``comms_tpu/kernels/band_monitor_pallas.py::band_monitor_pallas_planar``.
-On the H100 it reads 8 bytes per complex sample and does ~90 (K=16) to
-~390 (K=64) float32 multiply-adds per sample, so the CUDA cores bound
-it; one thread block per tile of audio outputs of all channels keeps
-spectrum, phase differences and audio in shared memory, so device
-memory sees the input and the audio once.  It writes the new carried
-state itself, so a block step makes one launch.  The source's header
-says more.
+On the H100 it reads 8 bytes per complex sample; its direct K-point DFT
+(4K multiply-adds a sample) and the demod's atan2 are the work, and the
+instructions around them (loads, index arithmetic, barriers) set its
+time, so its design cuts those: each block walks a run of consecutive
+tiles of 4096/K frames (:func:`partition`, fixed by the shape) and
+carries the last phase differences from tile to tile; for K <= 16 one
+thread holds a frame's branch sums and spectrum in registers, with the
+roots and the branch matrix passed by value as constant operands.  Every
+sum keeps one order, so the output does not depend on the tiling.
+Device memory sees the input and the audio once.  It writes the new
+carried state itself, so a block step makes one launch.  The source's
+header says more.
 
 :func:`band_monitor_planar` launches the kernel for CUDA tensors and
 runs :func:`band_monitor_plain` for CPU tensors; any other device
@@ -44,7 +49,7 @@ from comms_tpu_torch.ops import demodulation as _demod
 from comms_tpu_torch.ops import fir as _fir
 
 __all__ = ["band_monitor_planar", "band_monitor_plain", "halo_rows",
-           "zero_spec_halo", "CTX_SAMPLES", "step_samples"]
+           "zero_spec_halo", "partition", "CTX_SAMPLES", "step_samples"]
 
 CTX_SAMPLES = _CK.CTX_SAMPLES
 step_samples = _CK.step_samples
@@ -52,6 +57,22 @@ _LANES = 128
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
+
+# The tiles of a call are spread over about this many blocks, each
+# walking a run of consecutive tiles.  A fixed count, so that the
+# partition follows from the shape alone and not from the card (the
+# output's bits depend on neither).
+_RUN_BLOCKS = 264
+
+
+def partition(n_frames: int, num_channels: int):
+    """The kernel's partition of ``n_frames`` spectrum frames:
+    ``(tile_frames, run, blocks)``, tiles of 4096/K frames, ``run``
+    consecutive tiles a block."""
+    T = 4096 // int(num_channels)
+    tiles = int(n_frames) // T
+    run = max(1, -(-tiles // _RUN_BLOCKS))
+    return T, run, -(-tiles // run)
 
 
 def halo_rows(num_channels: int, audio_taps_len: int) -> int:
@@ -164,18 +185,22 @@ def band_monitor_planar(re, im, prototype, audio_taps, audio_dec: int,
     halo_i = torch.empty((hrows, _LANES), **f32)
     ctx_r = torch.empty((CTX_SAMPLES,), **f32)
     ctx_i = torch.empty((CTX_SAMPLES,), **f32)
-    C = _build.device_constant(_CK.branch_matrix(h, k), dev)
-    roots = _build.device_constant(_CK.root_table(k), dev)
+    # The roots and (K <= 16) the branch matrix go by value in the
+    # launch's parameters; above K = 16 the kernel reads C on the card.
+    C = _CK.branch_matrix(h, k)
+    roots = _CK.root_table(k)
+    C_dev = _build.device_constant(C, dev).data_ptr() if k > 16 else None
     taps = _build.device_constant(at, dev)
+    _, run, _ = partition(frames, k)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.band_monitor_launch(
             re.data_ptr(), im.data_ptr(), ctx_re.data_ptr(),
             ctx_im.data_ptr(), CTX_SAMPLES, spec_halo_re.data_ptr(),
-            spec_halo_im.data_ptr(), hframes, C.data_ptr(), roots.data_ptr(),
-            k, M, taps.data_ptr(), at.shape[0], dec, frames,
-            audio.data_ptr(), halo_r.data_ptr(), halo_i.data_ptr(),
-            ctx_r.data_ptr(), ctx_i.data_ptr(), stream)
+            spec_halo_im.data_ptr(), hframes, C.ctypes.data,
+            roots.ctypes.data, C_dev, k, M, taps.data_ptr(), at.shape[0],
+            dec, frames, run, audio.data_ptr(), halo_r.data_ptr(),
+            halo_i.data_ptr(), ctx_r.data_ptr(), ctx_i.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"band monitor kernel launch failed: CUDA error "
                            f"{rc}")
