@@ -23,7 +23,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    against the CPU;
 5. band monitor kernels against their plain versions at the main path's
    shapes: the channelizer (K=64 and K=16, 16,777,216 samples, zero and
-   mid-stream context), the decimating FIR (the staged audio stage's
+   mid-stream context; both also against a float64 channelizer), the
+   decimating FIR (the staged audio stage's
    batch of 8 channel pairs) and its poly-FIR entry (dec 5, 63 and 641
    taps), the fused band monitor (K=16 and K=64, 16,777,216 samples,
    zero and mid-stream state) on a capture with one FM station at the
@@ -37,10 +38,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    counts per kernel;
 7. kernel and plain-version times at the main paths' shapes (CUDA
    events around calls queued behind a spin kernel, so they time the
-   device and not the wrapper's host code), each beside the card's name
-   and power limit, and a ``torch.profiler`` split of 8 served FM blocks
-   and of 8 served band-monitor blocks (the device's busy share and its
-   time by operation: K1, K9, the sink's device-to-host copy);
+   device and not the wrapper's host code; the channelizer at K=64 and
+   K=16), each beside the card's name and power limit, and a
+   ``torch.profiler`` split of 8 served FM blocks, of 8 served
+   band-monitor blocks, and of 3 staged band-monitor and 3
+   channelizer-model blocks (the device's busy share and its time by
+   operation: K1, K9, K8, K2, the sink's device-to-host copy);
 8. QPSK: a synthetic capture of 33,554,432 samples (2^25, bench.py's
    capture), the FIR kernel (the matched filter's 32 real taps, and 257
    complex taps from a mid-stream context), the symbol kernel's three
@@ -604,6 +607,30 @@ def rel_err(got, want) -> float:
     return max_err(got, want) / float(want.abs().max().item())
 
 
+def channelize_f64(re, im, prototype, ctx_re, ctx_im, k: int):
+    """K8's function in float64 on the same float32 planes, context and
+    taps (the kernel's float32 branch matrix C [M, K]): V[m, c] =
+    sum_k C[k-1, c] x[(m-k)K + c + 1], the branches relabelled (U[:, n] =
+    V[:, n-1 mod K]) and Y = FFT(U).  Returns (yr, yi) float64."""
+    import torch
+
+    from comms_tpu_torch.kernels import channelizer as CK
+
+    C = torch.from_numpy(CK.branch_matrix(np.asarray(prototype, np.float64),
+                                          k).astype(np.float64)).to(re.device)
+    M = C.shape[0]
+    t = M * k - 1
+    x = torch.complex(torch.cat([ctx_re[-t:], re]).double(),
+                      torch.cat([ctx_im[-t:], im]).double())
+    frames = re.shape[0] // k
+    R = x[:(frames + M - 1) * k].reshape(frames + M - 1, k)
+    V = C[M - 1] * R[:frames]
+    for kk in range(M - 1, 0, -1):
+        V += C[kk - 1] * R[M - kk:M - kk + frames]
+    Y = torch.fft.fft(torch.roll(V, 1, dims=1), dim=1)
+    return Y.real, Y.imag
+
+
 def bin_err(got, want) -> float:
     """The largest error of any element relative to that element of
     ``want`` (a PSD's bins are all positive)."""
@@ -667,7 +694,9 @@ def band_monitor_phases(dev, card: str) -> list:
     cfg64 = bm.BandMonitorConfig(num_channels=BM_K64, block=BM_BLOCK)
     errs = {}
 
-    # ---- 5a. channelizer kernel vs plain (K=64 BASELINE and K=16)
+    # ---- 5a. channelizer kernel vs plain (K=64 BASELINE and K=16), and
+    # both against a float64 channelizer of the same inputs
+    f64_errs = {}
     for k, re, im in ((BM_K64, re64, im64), (BM_K, re16, im16)):
         h = (cfg64 if k == BM_K64 else cfg).prototype
         zc = torch.zeros(CK.CTX_SAMPLES, device=dev)
@@ -677,8 +706,9 @@ def band_monitor_phases(dev, card: str) -> list:
                  blk(im, 0)[-CK.CTX_SAMPLES:])):
             got = CK.channelize_planar(blk(re, b), blk(im, b), h, cr, ci, k)
             want = CK.channelize_plain(blk(re, b), blk(im, b), h, cr, ci, k)
+            f64 = channelize_f64(blk(re, b), blk(im, b), h, cr, ci, k)
             torch.cuda.synchronize()
-            for g, w in zip(got[:2], want[:2]):
+            for g, w, d in zip(got[:2], want[:2], f64):
                 if g.shape != (BM_BLOCK // k, k) or not torch.isfinite(
                         g).all():
                     fail(f"channelizer K={k} {name}: shape "
@@ -686,7 +716,16 @@ def band_monitor_phases(dev, card: str) -> list:
                 e = rel_err(g, w)
                 if e > TOL_CHAN:
                     fail(f"channelizer K={k} {name}: {e} > {TOL_CHAN}")
-                errs[f"channelize_K{k}_{name}"] = (max_err(g, w), e)
+                errs[f"channelize_K{k}_{name}"] = max(
+                    errs.get(f"channelize_K{k}_{name}", (0.0, 0.0)),
+                    (max_err(g, w), e))
+                ek, ep = f64_errs.get(f"K{k}_{name}", (0.0, 0.0))
+                f64_errs[f"K{k}_{name}"] = (
+                    max(ek, rel_err(g.double(), d)),
+                    max(ep, rel_err(w.double(), d)))
+            del f64
+    print("channelizer vs a float64 channelizer (relative to the largest "
+          "output; kernel, plain):", json.dumps(f64_errs))
 
     # ---- 5b. decimating FIR at the staged audio stage's shapes, and
     # the poly-FIR entry at dec 5 with 63 and 641 taps
@@ -853,8 +892,27 @@ def band_monitor_phases(dev, card: str) -> list:
     profile_served(lambda: serve(dev_blocks, SERVE_BLOCKS), card,
                    f"{SERVE_BLOCKS} served band-monitor blocks (K={BM_K}, "
                    f"device-resident)")
+
+    # ... and the two K8 paths: the staged band monitor and the
+    # 64-channel channelizer model, 3 device-resident blocks each
+    def staged_blocks():
+        s = bm.init_state(cfg, dev)
+        for r, i in dev_blocks:
+            _, s = staged(s, r, i)
+
+    def channelizer_blocks():
+        s = chm.init_state(chcfg, dev)
+        for r, i in dev_blocks:
+            _, s = ch_k(s, r, i)
+
+    profile_served(staged_blocks, card, f"3 staged band-monitor blocks "
+                   f"(K={BM_K}: K8, demod, K2)")
+    profile_served(channelizer_blocks, card,
+                   f"3 channelizer-model blocks (K={BM_K64})")
     mid64 = (blk(re64, 0)[-CK.CTX_SAMPLES:].clone(),
              blk(im64, 0)[-CK.CTX_SAMPLES:].clone())
+    mid16 = (blk(re16, 0)[-CK.CTX_SAMPLES:].clone(),
+             blk(im16, 0)[-CK.CTX_SAMPLES:].clone())
     bm_state = BM.band_monitor_planar(
         blk(re16, 0), blk(im16, 0), cfg.prototype, cfg.audio_taps,
         cfg.audio_dec, *bm.init_state_fused(cfg, dev), num_channels=BM_K)[1:]
@@ -867,6 +925,13 @@ def band_monitor_phases(dev, card: str) -> list:
             lambda: CK.channelize_plain(blk(re64, 1), blk(im64, 1),
                                         cfg64.prototype, *mid64, BM_K64),
             f"K={BM_K64}, N={BM_BLOCK}", BM_BLOCK),
+        # K8 at the staged band monitor's K (half its main-path launches)
+        "channelize_K16": (
+            lambda: CK.channelize_planar(blk(re16, 1), blk(im16, 1),
+                                         cfg.prototype, *mid16, BM_K),
+            lambda: CK.channelize_plain(blk(re16, 1), blk(im16, 1),
+                                        cfg.prototype, *mid16, BM_K),
+            f"K={BM_K}, N={BM_BLOCK}", BM_BLOCK),
         "fir_decimate": (
             lambda: DF.fir_decimate_planar(dr, di, cfg.audio_taps,
                                            cfg.audio_dec, fcr, fci,
@@ -2379,7 +2444,7 @@ def main() -> None:
     print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")
     print_ptxas_report(_build)
     print_ptxas_kernels(_build, ("fm_chain_kernel", "band_monitor_kernel",
-                                 "fir_kernel",
+                                 "channelize_kernel", "fir_kernel",
                                  "qpsk_sym_kernel",
                                  "qpsk_panel_tf32x3_kernel",
                                  "qpsk_panel_chunk_sum_kernel",

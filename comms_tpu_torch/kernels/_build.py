@@ -127,7 +127,7 @@ def _bind(lib) -> None:
     lib.channelize_launch.argtypes = [
         ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, ctx length
         ptr, ptr, i32, i32,        # C, roots, K, M
-        i64, ptr, ptr,             # frames, yr, yi
+        i64, i32, ptr, ptr,        # frames, blocks, yr, yi
         ptr,                       # cudaStream_t
     ]
     lib.decim_fir_smem_bytes.restype = i64

@@ -97,9 +97,9 @@ def _planar_step(cfg: ChannelizerConfig, use_kernel):
         yr, yi, _, _ = _CK.channelize_planar(
             re, im, cfg.prototype, torch.cat([zc, state[:, 0]]),
             torch.cat([zc, state[:, 1]]), num_channels=cfg.num_channels)
-        new_state = torch.stack(
-            [torch.cat([state[:, 0], re])[-(T - 1):],
-             torch.cat([state[:, 1], im])[-(T - 1):]], dim=-1)
+        # N >= 16384 > T - 1: the next state is the block's tail (stack
+        # copies it, so it never aliases a block buffer a caller reuses)
+        new_state = torch.stack([re[-(T - 1):], im[-(T - 1):]], dim=-1)
         return yr, yi, new_state
 
     def tensor_step(state, re, im):

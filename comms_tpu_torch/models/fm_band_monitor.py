@@ -177,8 +177,10 @@ def _make_planar_channelize(cfg: BandMonitorConfig, use_kernel: bool):
         yr, yi, _, _ = _CK.channelize_planar(
             re, im, cfg.prototype, torch.cat([zc, cre]),
             torch.cat([zc, cim]), num_channels=cfg.num_channels)
-        nre = torch.cat([cre, re])[-(T - 1):]
-        nim = torch.cat([cim, im])[-(T - 1):]
+        # N >= 16384 > T - 1: the next context is the block's tail (a
+        # copy, so that it never aliases a block buffer a caller reuses)
+        nre = re[-(T - 1):].clone()
+        nim = im[-(T - 1):].clone()
         return yr, yi, nre, nim
     return channelize
 

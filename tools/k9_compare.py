@@ -5,17 +5,20 @@ against an earlier K9, in one process on one CUDA card.
     mkdir -p build/k9_before
     git show <rev>:comms_tpu_torch/csrc/band_monitor.cu \\
         > build/k9_before/band_monitor.cu
+    git show 80165ab:comms_tpu_torch/csrc/channelize_tile.cuh \\
+        > build/k9_before/channelize_tile.cuh    # K9 up to 141c1f8
     PYTHONPATH=.:tools python3 tools/k9_compare.py build/k9_before [--quick]
 
 The earlier K9 (up to 141c1f8) takes C and the roots on the card and no
-run length; its headers (``atan2_poly.cuh``, ``channelize_tile.cuh``)
-are copied from the package where the directory lacks them (the package
-leaves both unchanged).  Each build is loaded with ctypes.  Beside it
-the script builds the ``VARIANTS`` (the package's ``csrc/band_monitor.cu``
-with one design choice undone: the roots read from a shared table instead
-of taken as constant operands) and ``PROBES`` (one stage cut, so that its
-time can be read off; their output is wrong by design and not checked),
-and runs the package with one tile a block (``recompute``: every tile
+run length, and includes ``channelize_tile.cuh``, which the package no
+longer has (K8's kernel dropped it): take it from 80165ab as above.
+``atan2_poly.cuh`` is copied from the package where the directory lacks
+it (the package leaves it unchanged).  Each build is loaded with ctypes.
+Beside it the script builds the ``VARIANTS`` (the package's
+``csrc/band_monitor.cu`` with one design choice undone: the roots read
+from a shared table instead of taken as constant operands) and
+``PROBES`` (one stage cut, so that its time can be read off; their output
+is wrong by design and not checked), and runs the package with one tile a block (``recompute``: every tile
 starts from the Ta frames before it instead of carrying them).
 
 It prints ptxas's lines and the SASS opcode counts (``cuobjdump``) of both
@@ -64,7 +67,7 @@ from k7_compare import sass_histogram
 
 SIZES = (16_384, 1_048_576, 16_777_216)
 PRE = BM.step_samples()          # the block before a mid-stream case
-HEADERS = ("atan2_poly.cuh", "channelize_tile.cuh")
+HEADERS = ("atan2_poly.cuh",)
 VARIANTS = {
     "table": [
         ("template <int K>\n__device__ __forceinline__ void frame_spectrum(",
