@@ -63,8 +63,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    same blocks; two blocks under ``torch.cuda.set_sync_debug_mode
    ("error")``; exact launch counts;
 10. QPSK kernel, plain-version and library (a packed ``torch.matmul``
-   for the panels) times, and a ``torch.profiler`` split of one served
-   block;
+   for the panels) times, the symbol kernel alone (both entries, its own
+   row in the kernel table, with its launches on both main paths), and
+   a ``torch.profiler`` split of one served block;
 11. spectrum kernels against their plain versions at full width, on a
    white-noise capture: the FFT kernel at 16,777,216 samples as rows of
    every size, 256..16384 (scale 1/sqrt(n), against a float64 oracle
@@ -1082,8 +1083,8 @@ def qpsk_align(sym, first: int, bits):
 
 
 def qpsk_phases(dev, card: str) -> list:
-    """Phases 8-10; returns the kernel table rows of K4, K5's three
-    entries and K11."""
+    """Phases 8-10; returns the kernel table rows of K4, K5's symbol
+    kernel alone, K5's three entries and K11."""
     import torch
 
     from comms_tpu_torch.kernels import fir as FK
@@ -1285,12 +1286,14 @@ def qpsk_phases(dev, card: str) -> list:
                        "qpsk_symbol_gemm": QS.launches["qpsk_symbol_gemm"],
                        "qpsk_symbol_gemm_scalars":
                            QS.launches["qpsk_symbol_gemm_scalars"],
+                       "qpsk_symbols": QS.launches["qpsk_symbols"],
                        "fir_planar": FK.launches,
                        "panel_reductions": PR.launches,
                        "plain": plain_calls[0]}
     print("QPSK one-shot main path launches:", json.dumps(one_shot_counts))
     want = {"qpsk_panels": 1, "qpsk_symbol_gemm": 1,
-            "qpsk_symbol_gemm_scalars": 1, "fir_planar": 1,
+            "qpsk_symbol_gemm_scalars": 1, "qpsk_symbols": 1,
+            "fir_planar": 1,
             "panel_reductions": 1, "plain": 0}
     if one_shot_counts != want:
         fail(f"one-shot launches {one_shot_counts}, expected {want}")
@@ -1330,6 +1333,7 @@ def qpsk_phases(dev, card: str) -> list:
                     QS.launches["qpsk_symbol_gemm_scalars"],
                     "qpsk_symbol_gemm": QS.launches["qpsk_symbol_gemm"],
                     "qpsk_panels": QS.launches["qpsk_panels"],
+                    "qpsk_symbols": QS.launches["qpsk_symbols"],
                     "plain": plain_calls[0]}
     print(f"QPSK serving Msps ({SERVE_BLOCKS} blocks of {QPSK_N}, depth "
           f"{SERVE_DEPTH}, after {SERVE_WARMUP} warm-up blocks) on {card}:",
@@ -1337,7 +1341,7 @@ def qpsk_phases(dev, card: str) -> list:
     n_served = 2 * (SERVE_WARMUP + SERVE_BLOCKS)
     if serve_counts != {"qpsk_symbol_gemm_scalars": n_served,
                         "qpsk_symbol_gemm": 0, "qpsk_panels": 0,
-                        "plain": 0}:
+                        "qpsk_symbols": n_served, "plain": 0}:
         fail(f"serving launches {serve_counts}")
     for a, b in zip(served["device"], served["pinned_host"]):
         if not np.array_equal(a, b):
@@ -1421,6 +1425,12 @@ def qpsk_phases(dev, card: str) -> list:
                                                         phase0, ctx_mid))
     print(f"qpsk_symbol_gemm symbols only at N={QPSK_N} on {card}: kernel "
           f"{sym_ms:.4f} ms, plain {sym_plain_ms:.4f} ms")
+    sym_scalars_ms = cuda_ms(lambda: QS.qpsk_symbol_gemm_scalars(
+        re, im, cfg.mf_taps, w_est, lag, shift2, phase0=phase0, ctx=ctx_mid))
+    print(f"qpsk_symbol_gemm_scalars symbols only at N={QPSK_N} on {card}: "
+          f"kernel {sym_scalars_ms:.4f} ms (the traced entry's "
+          f"{sym_ms:.4f}, the partition (threads, tiles, blocks) "
+          f"{QS.partition(QPSK_N)})")
     qpsk_profile(step, st, blocks[2], card)
 
     lib_panels = packed_matmul_ms(re, im, hw, qp)
@@ -1439,17 +1449,26 @@ def qpsk_phases(dev, card: str) -> list:
     launches = {k: one_shot_counts[k] + serve_counts.get(k, 0)
                 for k in ("fir_planar", "qpsk_symbol_gemm",
                           "qpsk_symbol_gemm_scalars", "qpsk_panels",
-                          "panel_reductions")}
+                          "qpsk_symbols", "panel_reductions")}
     # Bytes and operations from the shapes: complex taps on complex
     # samples 8 flops a tap at the N/4 symbols (CUDA cores); the four
     # panels 4w multiply-adds a sample (w = 128 + 2hw), in 3xTF32 on the
     # tensor cores; the reductions' 12 flops per panel entry they read.
+    # The symbol kernel alone (its row, qpsk_symbols): the traced entry
+    # without panels, its launches those of both symbol entries.
     N, MD, w = QPSK_N, int(fr.shape[0]), 128 + 2 * hw
     sym = (8 * N + 8 * N // 4, 2 * MD * N)
     pan = (8 * N, 8 * w * N)
+    sym_err = max(errs[k][0] for k in ("qpsk_symbol_gemm_zero_ctx",
+                                       "qpsk_symbol_gemm_mid_stream_ctx",
+                                       "qpsk_symbol_gemm_scalars"))
+    times["qpsk_symbols"] = (sym_ms, sym_plain_ms)
     table = [
         ("fir_planar", "fir.cu", "comms_tpu/kernels/fir_pallas.py:253",
          worst("fir_"), 16 * N, 4 * T * N, 0, lib_fir),
+        ("qpsk_symbols", "qpsk_sym.cu",
+         "comms_tpu/kernels/qpsk_sym_pallas.py:643", sym_err, sym[0],
+         sym[1], 0, None),
         ("qpsk_symbol_gemm", "qpsk_sym.cu",
          "comms_tpu/kernels/qpsk_sym_pallas.py:643",
          worst("qpsk_symbol_gemm_"), sym[0], sym[1], pan[1], None),
@@ -2322,7 +2341,8 @@ def sharded_phases(dev, card: str) -> list:
     sym, diag = rx(re, im)
     torch.cuda.synchronize()
     q_counts = (QS.launches["qpsk_panels"],
-                QS.launches["qpsk_symbol_gemm_scalars"], HR.launches)
+                QS.launches["qpsk_symbol_gemm_scalars"],
+                QS.launches["qpsk_symbols"], HR.launches)
     M = QPSK_N // 4
     rot, lag0, head_errs = qpsk_align(sym, 0, bits)
     lo, hi = lag0 + QPSK_MARGIN, M - QPSK_MARGIN
@@ -2330,15 +2350,16 @@ def sharded_phases(dev, card: str) -> list:
     d = {k: float(v) for k, v in diag.items()}
     print(f"sharded QPSK receiver ({SH_SHARDS} x {QPSK_N // SH_SHARDS}): "
           f"{json.dumps(d)}; lag {lag0} rot {rot}; {ber} bit errors over "
-          f"{2 * (hi - lo)} bits; (K5 panels, K5 symbols, K12) launches "
-          f"{q_counts}")
+          f"{2 * (hi - lo)} bits; (K5 panels, K5 symbol entry, K5 symbol "
+          f"kernel, K12) launches {q_counts}")
     if ber or head_errs or sym.shape != (2, M):
         fail(f"sharded QPSK receiver: {ber} bit errors")
     if abs(d["freq"] - QPSK_CFO) >= 0.01:
         fail(f"sharded QPSK frequency estimate {d['freq']}")
-    if q_counts != (SH_SHARDS, SH_SHARDS, 1):
-        fail(f"sharded QPSK: (K5 panels, K5 symbols, K12) {q_counts}")
-    counts["qpsk_rx"] = q_counts[2]
+    if q_counts != (SH_SHARDS, SH_SHARDS, SH_SHARDS, 1):
+        fail(f"sharded QPSK: (K5 panels, K5 symbol entry, K5 symbol "
+             f"kernel, K12) {q_counts}")
+    counts["qpsk_rx"] = q_counts[3]
     del re, im, sym
 
     # ---- 16e. the sharded PSDs at 2^20 x 32: frequency-sharded through

@@ -27,14 +27,40 @@
 // previous block's estimate chain.
 //
 // Bound on the H100: the planes are read once (8 bytes per sample) and
-// the symbols written (2 bytes per sample); 4*MD FMAs per symbol (176 at
-// MD = 44): 1.5 GFMA at 33.5M samples, a few tenths of a ms on the CUDA
-// cores.  One block per 256 symbols stages its window (4*256 + MD samples
-// of each plane) in shared memory phase-major (sample i at [i % 4][i / 4]),
-// so that the 32 threads of a warp read one phase at consecutive words for
-// every tap (conflict-free); the four real sums (xr*fr, xi*fi, xr*fi,
-// xi*fr) run as separate FMA chains over t, as the plain version's four
-// products do.
+// the symbols written (2 bytes per sample): 335.5 MB, 0.100 ms at 2^25
+// samples; 4*MD FMAs per symbol (176 at MD = 44), 1.5 GFMA, 0.044 ms on
+// the CUDA cores.  So the kernel is bound by its bytes, with the FMAs and
+// the epilogue's sincosf to be hidden under the copies.  Design:
+// - persistent blocks (qpsk_sym.partition, passed in): T threads (128,
+//   or 64 when a call has fewer than 264 tiles of 4T symbols; the entry
+//   takes 64, 128 or 256), block b walking tiles b, b + B, ... (B at most
+//   6,336: 48 blocks an SM, 5 resident at 95 registers); a tile is
+//   S = 4T symbols, S divides 65536, so a tile lies in one TPU step and
+//   its de-rotation base is computed once a tile, wsm and w128 once a
+//   block;
+// - the taps are loaded (traced taps) or built from the estimates
+//   (_scalars) once a block into shared memory;
+// - a tile's window is its S + MD/4 sample quads of each plane (global
+//   quads s0 - MD/4 + 1 .. s0 + S), copied with 16-byte cp.async into one
+//   of kStages = 2 buffers while the block computes the other (the first
+//   window while the taps are read or built).  Only the call's first
+//   tile reads the context and only its last tile reaches past N: the
+//   copy routine decides both once a tile, interior tiles take the
+//   unchecked path;
+// - register-blocked polyphase sums: a thread computes 4 consecutive
+//   symbols f .. f + 3.  With t = 4q + p, symbol f reads element 0 of
+//   window quad f + M - q at p = 0 and elements 3, 2, 1 of quad
+//   f + M - 1 - q at p = 1, 2, 3 (M = MD/4).  So the thread holds 5 quads
+//   of each plane in a ring of registers and each step of q loads one new
+//   quad a plane (and one quad of fr and of fi, broadcast) for 64 FMAs.
+//   Window quad j lies at shared quad j ^ ((j >> 3) & 3): the 8 lanes of
+//   a quarter warp read quads 4 apart, and the swizzle spreads them over
+//   the 8 16-byte bank groups (conflict-free, tests/_k5_sym_replay.py);
+// - each symbol keeps the parent's arithmetic, so its bits are the
+//   parent's: the four fmaf chains (xr*fr, xi*fi, xr*fi, xi*fr) over
+//   t = 0 .. MD-1 in ascending order, the __fsub_rn/__fadd_rn combine,
+//   the angle decomposition above and the accurate sincosf; each
+//   thread stores its 4 symbols as one float4 a plane.
 //
 // Panels (qpsk_panel_tf32x3_kernel + qpsk_panel_chunk_sum_kernel):
 //
@@ -94,7 +120,12 @@
 
 namespace {
 
-constexpr int kSymThreads = 256;              // symbols per block
+constexpr int kSymR = 4;                      // symbols a thread
+constexpr int kRing = kSymR + 1;              // window quads a thread holds
+static_assert(kSymR % 4 == 0, "symbols are stored as float4");
+constexpr int kSymThreadsMax = 256;           // threads a block, at most
+constexpr int kSymThreadsMin = 64;
+constexpr int kStages = 2;                    // window buffers a block
 constexpr int kMdMax = 132;
 constexpr int kStepSyms = 65536;              // symbols per TPU grid step
 constexpr int kRows = 512;                    // rows of 128 per step
@@ -108,26 +139,181 @@ __device__ __forceinline__ float mod_2pi(float x) {
   return r;
 }
 
-__global__ void qpsk_sym_kernel(
+// Quads of one plane of one window buffer: S + M rounded up to the
+// swizzle's groups of kSymR quads.
+__host__ __device__ __forceinline__ int window_quads(int S, int M) {
+  return (S + M + kSymR - 1) / kSymR * kSymR;
+}
+
+// Shared quad of window quad j.
+__device__ __forceinline__ int swz(int j) {
+  return j ^ ((j >> 3) & (kSymR - 1));
+}
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+struct SymShape {
+  int64_t quads;    // N / 4: sample quads of a plane (= symbols)
+  int M;            // MD / 4
+  int S;            // symbols a tile (kSymR * blockDim.x)
+  int wq;           // window_quads(S, M)
+  int tiles;        // quads / S
+  int aligned;      // both planes 16-byte aligned (else plain loads)
+};
+
+// The window of the tile at symbol s0 into buffer w (re quads at w, im at
+// w + s.wq): global quads s0 - M + 1 + j for j < S + M, as one cp.async
+// group of each thread.  Quads below 0 come from the context (zeros
+// without one), quads at or past N/4 are zero; only the call's first and
+// last tiles have them.
+__device__ __forceinline__ void load_window(
+    float4* w, const float* __restrict__ xr, const float* __restrict__ xi,
+    const float* __restrict__ ctx_r, const float* __restrict__ ctx_i,
+    const SymShape& s, int64_t s0) {
+  const int T = blockDim.x;
+  const int nq = s.S + s.M;
+  const int64_t k0 = s0 - s.M + 1;
+  const int j_lo = k0 < 0 ? static_cast<int>(-k0) : 0;
+  const int j_hi = k0 + nq > s.quads ? static_cast<int>(s.quads - k0) : nq;
+  const float* pr = xr + 4 * k0;
+  const float* pi = xi + 4 * k0;
+  if (s.aligned) {
+#pragma unroll 1
+    for (int j = j_lo + static_cast<int>(threadIdx.x); j < j_hi; j += T) {
+      cp_async16(w + swz(j), pr + 4 * j);
+      cp_async16(w + s.wq + swz(j), pi + 4 * j);
+    }
+  } else {
+#pragma unroll 1
+    for (int j = j_lo + static_cast<int>(threadIdx.x); j < j_hi; j += T) {
+      w[swz(j)] = make_float4(pr[4 * j], pr[4 * j + 1], pr[4 * j + 2],
+                              pr[4 * j + 3]);
+      w[s.wq + swz(j)] = make_float4(pi[4 * j], pi[4 * j + 1],
+                                     pi[4 * j + 2], pi[4 * j + 3]);
+    }
+  }
+  if (j_lo > 0) {                             // the call's first tile
+    const int MD = 4 * s.M;
+#pragma unroll 1
+    for (int j = threadIdx.x; j < j_lo; j += T) {
+      float vr[4] = {0.f, 0.f, 0.f, 0.f}, vi[4] = {0.f, 0.f, 0.f, 0.f};
+      if (ctx_r != nullptr) {
+        const int c = MD - 1 + 4 * static_cast<int>(k0 + j);   // >= 3
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          vr[e] = ctx_r[c + e];
+          vi[e] = ctx_i[c + e];
+        }
+      }
+      w[swz(j)] = make_float4(vr[0], vr[1], vr[2], vr[3]);
+      w[s.wq + swz(j)] = make_float4(vi[0], vi[1], vi[2], vi[3]);
+    }
+  }
+#pragma unroll 1
+  for (int j = j_hi + static_cast<int>(threadIdx.x); j < nq; j += T) {
+    w[swz(j)] = make_float4(0.f, 0.f, 0.f, 0.f);        // the last tile
+    w[s.wq + swz(j)] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One step of q for the thread's kSymR symbols: quad slot (u - q) mod
+// kRing holds window quad f + M - 1 - q + u (u = 0 .. kSymR); slot
+// (-q) mod kRing takes the new quad f + M - 1 - q.  K = q mod kRing.
+template <int K>
+__device__ __forceinline__ void sym_step(
+    const float4* __restrict__ cur, int wq, int j, float4 a, float4 b,
+    float4 (&qr)[kRing], float4 (&qi)[kRing], float (&acc)[kSymR][4]) {
+  constexpr int p0 = (kRing - K) % kRing;
+  qr[p0] = cur[swz(j)];
+  qi[p0] = cur[wq + swz(j)];
+#pragma unroll
+  for (int r = 0; r < kSymR; ++r) {
+    const float4 lr = qr[(r + kRing - K) % kRing];
+    const float4 li = qi[(r + kRing - K) % kRing];
+    const float hr = qr[(r + 1 + kRing - K) % kRing].x;
+    const float hi = qi[(r + 1 + kRing - K) % kRing].x;
+    float* c = acc[r];
+    // t = 4q: element 0 of quad u = r + 1
+    c[0] = fmaf(hr, a.x, c[0]);
+    c[1] = fmaf(hi, b.x, c[1]);
+    c[2] = fmaf(hr, b.x, c[2]);
+    c[3] = fmaf(hi, a.x, c[3]);
+    // t = 4q + 1, 4q + 2, 4q + 3: elements 3, 2, 1 of quad u = r
+    c[0] = fmaf(lr.w, a.y, c[0]);
+    c[1] = fmaf(li.w, b.y, c[1]);
+    c[2] = fmaf(lr.w, b.y, c[2]);
+    c[3] = fmaf(li.w, a.y, c[3]);
+    c[0] = fmaf(lr.z, a.z, c[0]);
+    c[1] = fmaf(li.z, b.z, c[1]);
+    c[2] = fmaf(lr.z, b.z, c[2]);
+    c[3] = fmaf(li.z, a.z, c[3]);
+    c[0] = fmaf(lr.y, a.w, c[0]);
+    c[1] = fmaf(li.y, b.w, c[1]);
+    c[2] = fmaf(lr.y, b.w, c[2]);
+    c[3] = fmaf(li.y, a.w, c[3]);
+  }
+}
+
+// Steps q + K, q + K + 1, ... of a chunk of kRing steps (q a multiple of
+// kRing, so that each step's ring slots are constants), up to M.
+template <int K>
+struct SymChunk {
+  static __device__ __forceinline__ void run(
+      const float4* __restrict__ cur, int wq, int j, int left,
+      const float4* __restrict__ ta, const float4* __restrict__ tb,
+      float4 (&qr)[kRing], float4 (&qi)[kRing], float (&acc)[kSymR][4]) {
+    sym_step<K>(cur, wq, j - K, ta[K], tb[K], qr, qi, acc);
+    if (K + 1 < left) {
+      SymChunk<K + 1>::run(cur, wq, j, left, ta, tb, qr, qi, acc);
+    }
+  }
+};
+
+template <>
+struct SymChunk<kRing> {
+  static __device__ __forceinline__ void run(
+      const float4* __restrict__, int, int, int, const float4* __restrict__,
+      const float4* __restrict__, float4 (&)[kRing], float4 (&)[kRing],
+      float (&)[kSymR][4]) {}
+};
+
+__global__ void __launch_bounds__(kSymThreadsMax, 2) qpsk_sym_kernel(
     const float* __restrict__ xr, const float* __restrict__ xi,
     const float* __restrict__ ctx_r, const float* __restrict__ ctx_i,
-    int MD, const float* __restrict__ taps_r,
-    const float* __restrict__ taps_i, const float* __restrict__ params,
-    const float* __restrict__ mf_rows, const float* __restrict__ scal_f,
-    const int* __restrict__ scal_i, int64_t n, float* __restrict__ yr,
-    float* __restrict__ yi) {
-  __shared__ float s_fr[kMdMax], s_fi[kMdMax];
-  extern __shared__ float smem[];
-  const int M = MD / 4;
-  const int Q = kSymThreads + M;              // window words per phase
-  float* s_xr = smem;
-  float* s_xi = smem + 4 * Q;
+    const float* __restrict__ taps_r, const float* __restrict__ taps_i,
+    const float* __restrict__ params, const float* __restrict__ mf_rows,
+    const float* __restrict__ scal_f, const int* __restrict__ scal_i,
+    const SymShape s, float* __restrict__ yr, float* __restrict__ yi) {
+  __shared__ float4 s_taps[2][kMdMax / 4];   // fr, fi as quads of t
+  extern __shared__ float4 s_win[];
+  float* const s_fr = reinterpret_cast<float*>(s_taps[0]);
+  float* const s_fi = reinterpret_cast<float*>(s_taps[1]);
+  const int T = blockDim.x;
+  const int M = s.M, MD = 4 * s.M;
+  const int stride = static_cast<int>(gridDim.x);
+  // the first windows are in flight while the taps are read or built
+  // (one cp.async group a tile, an empty one past the last)
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) {
+    const int tile = static_cast<int>(blockIdx.x) + k * stride;
+    if (tile < s.tiles) {
+      load_window(s_win + 2 * s.wq * k, xr, xi, ctx_r, ctx_i, s,
+                  static_cast<int64_t>(tile) * s.S);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+  }
 
   float ws, phase0;
   if (taps_r != nullptr) {                    // traced taps
     ws = params[0];
     phase0 = params[1];
-    for (int t = threadIdx.x; t < MD; t += kSymThreads) {
+    for (int t = threadIdx.x; t < MD; t += T) {
       s_fr[t] = taps_r[t];
       s_fi[t] = taps_i[t];
     }
@@ -136,12 +322,12 @@ __global__ void qpsk_sym_kernel(
     const int t0 = scal_i[0] + 4;
     ws = __fmul_rn(w, 4.f);
     phase0 = scal_f[5];
-    for (int t = threadIdx.x; t < MD; t += kSymThreads) {
+    for (int t = threadIdx.x; t < MD; t += T) {
       float flat = 0.f;
-      for (int s = 0; s < 12; ++s) {
-        const int j = s - t0;
+      for (int k = 0; k < 12; ++k) {
+        const int j = k - t0;
         const float a = (j >= 0 && j < 4) ? scal_f[1 + j] : 0.f;
-        flat = __fadd_rn(flat, __fmul_rn(a, mf_rows[s * kMfLanes + t]));
+        flat = __fadd_rn(flat, __fmul_rn(a, mf_rows[k * kMfLanes + t]));
       }
       float sn, cs;
       sincosf(__fmul_rn(w, static_cast<float>(t)), &sn, &cs);
@@ -149,58 +335,70 @@ __global__ void qpsk_sym_kernel(
       s_fi[t] = __fmul_rn(flat, sn);
     }
   }
-
-  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kSymThreads;
-  const int64_t n0 = 4 * s0 + 4 - MD;         // window sample 0
-  for (int i = threadIdx.x; i < 4 * Q; i += kSymThreads) {
-    const int64_t m = n0 + i;
-    float vr = 0.f, vi = 0.f;
-    if (m >= 0) {
-      if (m < n) {
-        vr = xr[m];
-        vi = xi[m];
-      }
-    } else if (ctx_r != nullptr) {
-      vr = ctx_r[MD - 1 + m];
-      vi = ctx_i[MD - 1 + m];
-    }
-    s_xr[(i & 3) * Q + (i >> 2)] = vr;
-    s_xi[(i & 3) * Q + (i >> 2)] = vi;
-  }
-  __syncthreads();
-
-  const int f = threadIdx.x;
-  const int64_t s = s0 + f;
-  if (4 * s >= n) return;
-  // Symbol s reads window sample 4(f + M) - t.
-  float prr = 0.f, pii = 0.f, pri = 0.f, pir = 0.f;
-  for (int t = 0; t < MD; ++t) {
-    const int i = 4 * (f + M) - t;
-    const float x_r = s_xr[(i & 3) * Q + (i >> 2)];
-    const float x_i = s_xi[(i & 3) * Q + (i >> 2)];
-    prr = fmaf(x_r, s_fr[t], prr);
-    pii = fmaf(x_i, s_fi[t], pii);
-    pri = fmaf(x_r, s_fi[t], pri);
-    pir = fmaf(x_i, s_fr[t], pir);
-  }
-  const float y_r = __fsub_rn(prr, pii);
-  const float y_i = __fadd_rn(pri, pir);
-
   const float wsm = mod_2pi(ws);
   const float w128 = mod_2pi(__fmul_rn(wsm, 128.f));
-  const int64_t g = s / kStepSyms;
-  const int rem = static_cast<int>(s - g * kStepSyms);
-  const float base = mod_2pi(__fadd_rn(
-      __fadd_rn(phase0, wsm),
-      __fmul_rn(__fmul_rn(w128, static_cast<float>(kRows)),
-                static_cast<float>(g))));
-  const float ang = __fadd_rn(
-      __fadd_rn(base, __fmul_rn(w128, static_cast<float>(rem >> 7))),
-      __fmul_rn(wsm, static_cast<float>(rem & 127)));
-  float sn, cs;
-  sincosf(ang, &sn, &cs);
-  yr[s] = __fadd_rn(__fmul_rn(y_r, cs), __fmul_rn(y_i, sn));
-  yi[s] = __fsub_rn(__fmul_rn(y_i, cs), __fmul_rn(y_r, sn));
+  const float head = __fadd_rn(phase0, wsm);
+  const float per_step = __fmul_rn(w128, static_cast<float>(kRows));
+
+  const int fa = kSymR * static_cast<int>(threadIdx.x);
+  for (int tile = blockIdx.x, it = 0; tile < s.tiles; tile += stride, ++it) {
+    const float4* const cur = s_win + 2 * s.wq * (it % kStages);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    __syncthreads();                  // window in; the last tile done
+    const int ahead = tile + (kStages - 1) * stride;
+    if (ahead < s.tiles) {
+      load_window(s_win + 2 * s.wq * ((it + kStages - 1) % kStages), xr, xi,
+                  ctx_r, ctx_i, s, static_cast<int64_t>(ahead) * s.S);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+
+    float acc[kSymR][4];
+#pragma unroll
+    for (int r = 0; r < kSymR; ++r) {
+      acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+    }
+    float4 qr[kRing], qi[kRing];
+    const int j0 = fa + M - 1;
+#pragma unroll
+    for (int u = 1; u < kRing; ++u) {
+      qr[u] = cur[swz(j0 + u)];
+      qi[u] = cur[s.wq + swz(j0 + u)];
+    }
+#pragma unroll 1
+    for (int q = 0; q < M; q += kRing) {
+      SymChunk<0>::run(cur, s.wq, j0 - q, M - q, s_taps[0] + q,
+                       s_taps[1] + q, qr, qi, acc);
+    }
+
+    // de-rotation: base once a tile (a tile lies in one TPU step)
+    const int64_t s0 = static_cast<int64_t>(tile) * s.S;
+    const int64_t g = s0 / kStepSyms;
+    const float base = mod_2pi(__fadd_rn(
+        head, __fmul_rn(per_step, static_cast<float>(g))));
+    const int rem0 = static_cast<int>(s0 - g * kStepSyms) + fa;
+    float o_r[kSymR], o_i[kSymR];
+#pragma unroll
+    for (int r = 0; r < kSymR; ++r) {
+      const float y_r = __fsub_rn(acc[r][0], acc[r][1]);
+      const float y_i = __fadd_rn(acc[r][2], acc[r][3]);
+      const int rem = rem0 + r;
+      const float ang = __fadd_rn(
+          __fadd_rn(base, __fmul_rn(w128, static_cast<float>(rem >> 7))),
+          __fmul_rn(wsm, static_cast<float>(rem & 127)));
+      float sn, cs;
+      sincosf(ang, &sn, &cs);
+      o_r[r] = __fadd_rn(__fmul_rn(y_r, cs), __fmul_rn(y_i, sn));
+      o_i[r] = __fsub_rn(__fmul_rn(y_i, cs), __fmul_rn(y_r, sn));
+    }
+#pragma unroll
+    for (int r = 0; r < kSymR; r += 4) {
+      *reinterpret_cast<float4*>(yr + s0 + fa + r) =
+          make_float4(o_r[r], o_r[r + 1], o_r[r + 2], o_r[r + 3]);
+      *reinterpret_cast<float4*>(yi + s0 + fa + r) =
+          make_float4(o_i[r], o_i[r + 1], o_i[r + 2], o_i[r + 3]);
+    }
+  }
 }
 
 // ---- panels
@@ -514,44 +712,60 @@ __global__ void qpsk_panel_chunk_sum_kernel(const float* __restrict__ part,
 
 }  // namespace
 
-extern "C" int64_t qpsk_sym_smem_bytes(int MD) {
-  return static_cast<int64_t>(sizeof(float)) * 2 * 4 *
-         (kSymThreads + MD / 4);
-}
-
 // C entry for ctypes: the symbols.  Pointers on the current device:
 // xr/xi [n] (n % 4 == 0); ctx_r/ctx_i [MD - 1] or null (zero context);
 // either taps_r/taps_i [MD] with params [2] = (ws, phase0), or (taps_r
 // null) mf_rows [16 x 128], scal_f [6] = (w, lag[4], phase0) and scal_i
-// [1] = shift2; yr/yi [n / 4].  MD % 4 == 0, MD <= 132.  Launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// [1] = shift2; yr/yi [n / 4], 16-byte aligned.  MD % 4 == 0, MD <= 132.
+// The partition (qpsk_sym.partition): `threads` a block (64, 128 or 256;
+// tiles of 4 * threads symbols, which must divide n / 4) and `blocks`
+// (at most the tiles).  Launches on `stream` without synchronising;
+// returns cudaGetLastError().
 extern "C" int qpsk_sym_launch(const void* xr, const void* xi,
                                const void* ctx_r, const void* ctx_i,
                                int MD, const void* taps_r,
                                const void* taps_i, const void* params,
                                const void* mf_rows, const void* scal_f,
-                               const void* scal_i, int64_t n, void* yr,
-                               void* yi, void* stream) {
+                               const void* scal_i, int64_t n, int threads,
+                               int blocks, void* yr, void* yi,
+                               void* stream) {
+  const int S = kSymR * threads;
   if (MD < 4 || MD > kMdMax || MD % 4 != 0 || n <= 0 || n % 4 != 0 ||
       (taps_r == nullptr && (mf_rows == nullptr || scal_f == nullptr ||
-                             scal_i == nullptr || MD > kMfLanes))) {
+                             scal_i == nullptr || MD > kMfLanes)) ||
+      threads < kSymThreadsMin || threads > kSymThreadsMax ||
+      (threads & (threads - 1)) != 0 || (n / 4) % S != 0 ||
+      (n / 4) / S > INT32_MAX || blocks < 1 || blocks > (n / 4) / S ||
+      ((reinterpret_cast<uintptr_t>(yr) | reinterpret_cast<uintptr_t>(yi)) &
+       15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t smem = qpsk_sym_smem_bytes(MD);
-  const int64_t syms = n / 4;
-  const unsigned grid =
-      static_cast<unsigned>((syms + kSymThreads - 1) / kSymThreads);
-  cudaError_t err = cudaFuncSetAttribute(
-      qpsk_sym_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  SymShape s{n / 4, MD / 4, S, window_quads(S, MD / 4),
+             static_cast<int>((n / 4) / S), 0};
+  s.aligned = ((reinterpret_cast<uintptr_t>(xr) |
+                reinterpret_cast<uintptr_t>(xi)) & 15) == 0;
+  const int smem = static_cast<int>(sizeof(float4)) * 2 * kStages * s.wq;
+  // The limit is raised once per device, to the most any call takes.
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  qpsk_sym_kernel<<<grid, kSymThreads, smem,
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        qpsk_sym_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(float4)) * 2 * kStages *
+            window_quads(kSymR * kSymThreadsMax, kMdMax / 4));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  qpsk_sym_kernel<<<blocks, threads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const float*>(ctx_r), static_cast<const float*>(ctx_i), MD,
+      static_cast<const float*>(ctx_r), static_cast<const float*>(ctx_i),
       static_cast<const float*>(taps_r), static_cast<const float*>(taps_i),
       static_cast<const float*>(params), static_cast<const float*>(mf_rows),
-      static_cast<const float*>(scal_f), static_cast<const int*>(scal_i), n,
+      static_cast<const float*>(scal_f), static_cast<const int*>(scal_i), s,
       static_cast<float*>(yr), static_cast<float*>(yi));
   return static_cast<int>(cudaGetLastError());
 }

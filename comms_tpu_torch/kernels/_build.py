@@ -161,7 +161,8 @@ def _bind(lib) -> None:
         ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, MD
         ptr, ptr, ptr,             # taps r, taps i, (ws, phase0)
         ptr, ptr, ptr,             # mf rows, (w, lag, phase0), shift2
-        i64, ptr, ptr, ptr,        # samples, yr, yi, cudaStream_t
+        i64, i32, i32,             # samples, threads a block, blocks
+        ptr, ptr, ptr,             # yr, yi, cudaStream_t
     ]
     lib.qpsk_panels_launch.restype = i32
     lib.qpsk_panels_launch.argtypes = [

@@ -37,7 +37,10 @@ panels.
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions for CPU tensors; any other device raises.  ``launches`` counts,
 per entry name, the calls that launched kernels (a symbol entry with
-panels launches a symbol and two panel kernels and counts once).  The
+panels launches a symbol and two panel kernels and counts once), and
+under ``qpsk_symbols`` the symbol kernel's own launches, whichever entry
+made them.  The symbol kernel walks tiles of symbols in persistent
+blocks, a partition fixed by the shape (:func:`partition`).  The
 taps of ``_scalars`` are built with the accurate ``sincosf``, so the
 port does not carry the TPU kernel's ~3e-3 in-kernel tap error.
 """
@@ -53,7 +56,8 @@ from comms_tpu_torch.ops import fir as _fir
 
 __all__ = ["qpsk_symbol_gemm", "qpsk_symbol_gemm_scalars", "qpsk_panels",
            "qpsk_symbol_plain", "qpsk_panels_plain", "modulated_taps_plain",
-           "kernel_ok", "panel_chunking", "IN_PER_STEP", "SPS"]
+           "kernel_ok", "panel_chunking", "partition", "IN_PER_STEP",
+           "SPS"]
 
 _LANES = 128
 _ROWS = 512                    # output rows of 128 symbols per TPU step
@@ -63,12 +67,16 @@ _MD_MAX = 132
 _MF_MAX = 116                  # matched-filter taps of the _scalars entry
 _STEP_SYMS = IN_PER_STEP // SPS
 _PANEL_CHUNKS = 66             # the panel kernel's chunks of rows, at least
+_SYM_R = 4                     # symbols a thread of the symbol kernel
+_SYM_THREADS = (128, 64)       # its block sizes, largest first
+_SYM_MIN_TILES = 264           # tiles a call, before smaller blocks are taken
+_RUN_BLOCKS = 6336             # blocks a call, at most (48 an SM)
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
 # Calls that launched kernels, per entry, since import (or since a
 # caller reset them to 0).
 launches = {"qpsk_symbol_gemm": 0, "qpsk_symbol_gemm_scalars": 0,
-            "qpsk_panels": 0}
+            "qpsk_panels": 0, "qpsk_symbols": 0}
 
 
 def kernel_ok(n: int, md: int, sps: int) -> bool:
@@ -143,6 +151,22 @@ def _int_scalar(v, dev) -> torch.Tensor:
 
 # ---- the kernels
 
+def partition(n: int):
+    """The symbol kernel's partition of the n / 4 symbols of ``n``
+    samples: ``(threads, tiles, blocks)``.  Tiles of 4 * ``threads``
+    symbols (a divisor of the 65,536 of a TPU step): 128 threads, or 64
+    when a call has fewer than 264 tiles of 512 (two an SM); at most
+    6,336 persistent blocks, block b walking tiles b, b + blocks, ...
+    (on an H100 at 2^25 samples 128 threads and 6,336 blocks ran 1.08x
+    faster than 256 threads and 2,112 blocks, tools/k5_sym_compare.py)."""
+    syms = int(n) // SPS
+    for threads in _SYM_THREADS:
+        if syms // (_SYM_R * threads) >= _SYM_MIN_TILES:
+            break
+    tiles = syms // (_SYM_R * threads)
+    return threads, tiles, max(1, min(tiles, _RUN_BLOCKS))
+
+
 def _launch_symbols(re, im, ctx, md, taps=None, ws=None, phase0=0.0,
                     scalars=None):
     lib = _build.load()
@@ -162,19 +186,24 @@ def _launch_symbols(re, im, ctx, md, taps=None, ws=None, phase0=0.0,
         scal_f = torch.cat([_scalar(w, dev),
                             lag.to(device=dev, dtype=torch.float32)
                             .reshape(4), _scalar(phase0, dev)])
-        scal_i = _int_scalar(shift2, dev).to(torch.int32).reshape(1)
+        scal_i = (shift2.to(device=dev, dtype=torch.int32).reshape(1)
+                  if isinstance(shift2, torch.Tensor) else
+                  torch.full((1,), int(shift2), dtype=torch.int32,
+                             device=dev))
         ptrs = (None, None, None, rows.data_ptr(), scal_f.data_ptr(),
                 scal_i.data_ptr())
+    threads, _, blocks = partition(n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.qpsk_sym_launch(
             re.data_ptr(), im.data_ptr(),
             ctx[0].data_ptr() if ctx is not None else None,
             ctx[1].data_ptr() if ctx is not None else None, md,
-            *ptrs, n, yr.data_ptr(), yi.data_ptr(), stream)
+            *ptrs, n, threads, blocks, yr.data_ptr(), yi.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"QPSK symbol kernel launch failed: CUDA "
                            f"error {rc}")
+    launches["qpsk_symbols"] += 1
     return yr, yi
 
 
