@@ -25,8 +25,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    shapes: the channelizer (K=64 and K=16, 16,777,216 samples, zero and
    mid-stream context; both also against a float64 channelizer), the
    decimating FIR (the staged audio stage's
-   batch of 8 channel pairs) and its poly-FIR entry (dec 5, 63 and 641
-   taps), the fused band monitor (K=16 and K=64, 16,777,216 samples,
+   batch of 8 channel pairs, and the same chopped in two calls through
+   the carried context: bit for bit) and its poly-FIR entry (dec 5, 63
+   and 641 taps), the fused band monitor (K=16 and K=64, 16,777,216 samples,
    zero and mid-stream state) on a capture with one FM station at the
    centre of every channel, and on white noise at 3 x 16,384 samples;
 6. band monitor main path: ``StreamRunner`` over the fused block step
@@ -39,11 +40,12 @@ Phases (each raises on failure, so any failure exits non-zero):
 7. kernel and plain-version times at the main paths' shapes (CUDA
    events around calls queued behind a spin kernel, so they time the
    device and not the wrapper's host code; the channelizer at K=64 and
-   K=16), each beside the card's name and power limit, and a
-   ``torch.profiler`` split of 8 served FM blocks, of 8 served
-   band-monitor blocks, and of 3 staged band-monitor and 3
-   channelizer-model blocks (the device's busy share and its time by
-   operation: K1, K9, K8, K2, the sink's device-to-host copy);
+   K=16, the poly-FIR entry at 63 and 641 taps), each beside the card's
+   name and power limit, and a ``torch.profiler`` split of 8 served FM
+   blocks, of 8 served band-monitor blocks, and of 3 staged
+   band-monitor and 3 channelizer-model blocks (the device's busy
+   share and its time by operation: K1, K9, K8, K2, the sink's
+   device-to-host copy);
 8. QPSK: a synthetic capture of 33,554,432 samples (2^25, bench.py's
    capture), the FIR kernel (the matched filter's 32 real taps, and 257
    complex taps from a mid-stream context), the symbol kernel's three
@@ -566,11 +568,11 @@ def print_ptxas_kernels(build, names) -> None:
         elif current and "Used" in line and any(k in current
                                                 for k in mangled):
             short = next(n for k, n in mangled.items() if k in current)
-            ti = re.search(r"I((?:Li\d+E)+)E", current)
-            tmpl = "<true>" if "ILb1E" in current else (
-                "<false>" if "ILb0E" in current else (
-                    "<" + ", ".join(re.findall(r"\d+", ti.group(1))) + ">"
-                    if ti else ""))
+            ti = re.search(r"I((?:L[ib]\d+E)+)E", current)
+            tmpl = "<" + ", ".join(
+                v if k == "i" else ("true" if v == "1" else "false")
+                for k, v in re.findall(r"L([ib])(\d+)E", ti.group(1))
+            ) + ">" if ti else ""
             print(f"ptxas {short}{tmpl}: {line.split(':', 1)[1].strip()}")
             current = None
 
@@ -748,6 +750,21 @@ def band_monitor_phases(dev, card: str) -> list:
     torch.cuda.synchronize()
     g, w = torch.complex(got[0], got[1]), torch.complex(*want)
     errs["fir_decimate_staged"] = (max_err(g, w), rel_err(g, w))
+    # chopped at an odd multiple of the quantum, through the carried
+    # context: the one-shot call's bits
+    cut = 3 * tile * W
+    a = DF.fir_decimate_planar(dr[:, :cut].contiguous(),
+                               di[:, :cut].contiguous(), cfg.audio_taps,
+                               cfg.audio_dec, fcr, fci, tile_rows=tile)
+    b = DF.fir_decimate_planar(dr[:, cut:].contiguous(),
+                               di[:, cut:].contiguous(), cfg.audio_taps,
+                               cfg.audio_dec, a[2], a[3], tile_rows=tile)
+    for k in range(2):
+        if not torch.equal(torch.cat([a[k], b[k]], 1), got[k]):
+            fail("decimating FIR: two chopped calls differ from one call "
+                 "at the staged audio stage's shape")
+    print(f"decimating FIR chopped at {cut} of {n_ch} samples a row: "
+          f"bit-identical to one call")
     pr, pi = dev_normal(POLY_N), dev_normal(POLY_N)
     pcr = dev_normal(DF.CTX_ROWS * POLY_DEC * 128)
     pci = dev_normal(DF.CTX_ROWS * POLY_DEC * 128)
@@ -947,6 +964,12 @@ def band_monitor_phases(dev, card: str) -> list:
             lambda: DF.fir_decimate_plain(pr, pi, poly_taps[63], POLY_DEC,
                                           pcr, pci),
             f"N={POLY_N}, dec {POLY_DEC}, 63 taps", POLY_N),
+        "poly_fir_641": (
+            lambda: DF.poly_fir_planar(pr, pi, poly_taps[641], pcr, pci,
+                                       POLY_DEC),
+            lambda: DF.fir_decimate_plain(pr, pi, poly_taps[641], POLY_DEC,
+                                          pcr, pci),
+            f"N={POLY_N}, dec {POLY_DEC}, 641 taps", POLY_N),
         "band_monitor": (
             lambda: BM.band_monitor_planar(*bm_args, num_channels=BM_K),
             lambda: BM.band_monitor_plain(*bm_args, num_channels=BM_K),
@@ -976,8 +999,15 @@ def band_monitor_phases(dev, card: str) -> list:
         h63, POLY_DEC,
         want=torch.stack(DF.poly_fir_planar(pr, pi, h63, pcr, pci,
                                             POLY_DEC)[:2]))
+    h641 = poly_taps[641]
+    lib_641 = conv1d_ms(
+        torch.stack([torch.cat([pcr[-640:], pr]),
+                     torch.cat([pci[-640:], pi])]),
+        h641, POLY_DEC,
+        want=torch.stack(DF.poly_fir_planar(pr, pi, h641, pcr, pci,
+                                            POLY_DEC)[:2]))
     print(f"library (F.conv1d) on {card}: fir_decimate {lib_dec:.4f} ms, "
-          f"poly_fir {lib_poly:.4f} ms")
+          f"poly_fir {lib_poly:.4f} ms, poly_fir 641 taps {lib_641:.4f} ms")
 
     def worst(prefix):
         return max(v[0] for k, v in errs.items() if k.startswith(prefix))
@@ -1005,6 +1035,12 @@ def band_monitor_phases(dev, card: str) -> list:
          main_counts["fir_decimate"], worst("poly_fir_"),
          8 * POLY_N + 8 * POLY_N // POLY_DEC, 4 * 63 * POLY_N // POLY_DEC,
          lib_poly),
+        # the same entry at 641 taps: bound by its FMAs
+        ("poly_fir_641", "decim_fir.cu",
+         "comms_tpu/kernels/poly_fir_pallas.py:173",
+         main_counts["fir_decimate"], worst("poly_fir_641"),
+         8 * POLY_N + 8 * POLY_N // POLY_DEC, 4 * 641 * POLY_N // POLY_DEC,
+         lib_641),
         ("band_monitor", "band_monitor.cu",
          "comms_tpu/kernels/band_monitor_pallas.py:349",
          main_counts["band_monitor"], worst("band_monitor_"),
@@ -2466,6 +2502,7 @@ def main() -> None:
     print_ptxas_report(_build)
     print_ptxas_kernels(_build, ("fm_chain_kernel", "band_monitor_kernel",
                                  "channelize_kernel", "fir_kernel",
+                                 "decim_fir_kernel",
                                  "qpsk_sym_kernel",
                                  "qpsk_panel_tf32x3_kernel",
                                  "qpsk_panel_chunk_sum_kernel",

@@ -136,8 +136,9 @@ def _bind(lib) -> None:
     lib.decim_fir_launch.argtypes = [
         ptr, ptr, ptr, ptr, i32,   # xr, xi, ctx r, ctx i, ctx length
         ptr, ptr, i32, i32, i32,   # taps r, taps i, MD, D, complex taps
-        i64, i32, i32,             # samples per row, rows, outputs/block
-        ptr, ptr, ptr,             # yr, yi, cudaStream_t
+        i64, i32, i32, i32,        # samples a row, rows, threads, blocks
+        ptr, ptr, ptr, ptr,        # yr, yi, next ctx r, next ctx i
+        ptr,                       # cudaStream_t
     ]
     lib.band_monitor_launch.restype = i32
     lib.band_monitor_launch.argtypes = [

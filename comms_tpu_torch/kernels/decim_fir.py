@@ -20,9 +20,11 @@ over float32 re/im planes with a carried input context.  One kernel,
 
 On the H100 the kernel reads 8 bytes per input sample and does MD/D
 multiply-adds per plane and output: memory bounds short filters, the
-CUDA cores long ones.  Its design reads each input sample about once
-(one thread block per run of consecutive outputs, their window staged in
-shared memory phase-major, conflict-free); the source's header says
+CUDA cores long ones.  Persistent blocks walk tiles of consecutive
+outputs (:func:`partition` sets the plan), each tile's window copied
+ahead into shared memory with ``cp.async``, each thread summing R
+consecutive outputs from a ring of sample groups in registers; the
+same launch writes the next call's context.  The source's header says
 more.  Both ``mode`` values of the TPU kernel's entry ("split", its
 bf16x3 products, and "bf16") compute in float32 on the CUDA cores here;
 no caller passes "bf16".
@@ -44,12 +46,20 @@ from comms_tpu_torch.ops import fir as _fir
 
 __all__ = ["fir_decimate_planar", "decim_ctx_zero", "max_taps",
            "poly_fir_planar", "poly_fir", "step_samples", "CTX_ROWS",
-           "fir_decimate_plain"]
+           "fir_decimate_plain", "partition", "outputs_per_thread"]
 
 _LANES = 128
 _POLY_ROWS = 64          # the K3 entry's block quantum, in rows of D*128
 CTX_ROWS = 8             # the K3 entry's context, in rows of D*128
 _SMEM_LIMIT = 232448     # bytes of shared memory a block may use (H100)
+# The kernel's plan (csrc/decim_fir.cu): outputs a thread by D (entry 0
+# for D above 8, kROfD there), threads a block (the first that gives
+# _MIN_TILES tiles, two an SM; fewer only where shared memory needs it)
+# and persistent blocks at most.
+_R_OF_D = (1, 7, 7, 5, 5, 7, 3, 3, 3)
+_THREADS = (128, 64)
+_MIN_TILES = 264
+_RUN_BLOCKS = 2112
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -72,6 +82,29 @@ def decim_ctx_zero(dec: int, device="cuda"):
 def step_samples(dec: int) -> int:
     """Block quantum of :func:`poly_fir_planar`."""
     return _POLY_ROWS * dec * _LANES
+
+
+def outputs_per_thread(dec: int) -> int:
+    """Consecutive outputs each thread of the kernel sums (R)."""
+    return _R_OF_D[dec] if dec < len(_R_OF_D) else _R_OF_D[0]
+
+
+def partition(n_out: int, rows: int, dec: int, max_threads: int = 128):
+    """The kernel's partition of ``rows`` rows of ``n_out`` outputs:
+    ``(threads, tiles, blocks)``.  Tiles of R * ``threads`` consecutive
+    outputs of one row (a row's last tile may be partial): 128 threads,
+    or 64 when a call has fewer than 264 tiles of 128 threads; at most
+    ``_RUN_BLOCKS`` persistent blocks, block b walking tiles b,
+    b + blocks, ...  ``max_threads`` caps the threads where a window
+    would not fit shared memory."""
+    R = outputs_per_thread(dec)
+    for threads in _THREADS + (32,):
+        if threads > max_threads:
+            continue
+        tiles = rows * -(-int(n_out) // (R * threads))
+        if tiles >= _MIN_TILES or threads == _THREADS[-1]:
+            break
+    return threads, tiles, max(1, min(tiles, _RUN_BLOCKS))
 
 
 def _padded_taps(taps, dec: int):
@@ -111,7 +144,9 @@ def _check_planes(xr, xi, ctx_r, ctx_i, ctx_len: int):
 
 def _launch(xr, xi, taps, dec: int, ctx_r, ctx_i):
     """The kernel on CUDA planes ([N] or [B, N]) with their context
-    ([..., L] per row); returns (yr, yi)."""
+    ([..., L] per row); returns (yr, yi, next ctx_r, next ctx_i), the
+    next context (each row's last L samples, shaped as the context)
+    written by the same launch."""
     global launches
     dev = xr.device
     if dev.type != "cuda":
@@ -121,18 +156,20 @@ def _launch(xr, xi, taps, dec: int, ctx_r, ctx_i):
     hr, hi = _padded_taps(taps, dec)
     MD = hr.shape[0]
     cplx = int(hi is not None)
-    k_out = 256
-    while (k_out > 32 and lib.decim_fir_smem_bytes(MD, dec, k_out, cplx)
-           > _SMEM_LIMIT):
-        k_out //= 2
-    if lib.decim_fir_smem_bytes(MD, dec, k_out, cplx) > _SMEM_LIMIT:
-        raise ValueError(f"dec {dec} with {MD} taps does not fit the "
-                         f"kernel's shared-memory window")
     n_in = xr.shape[-1]
     rows = 1 if xr.ndim == 1 else xr.shape[0]
+    cap = max(_THREADS)
+    while (cap > 32 and lib.decim_fir_smem_bytes(MD, dec, cap, cplx)
+           > _SMEM_LIMIT):
+        cap //= 2
+    if lib.decim_fir_smem_bytes(MD, dec, cap, cplx) > _SMEM_LIMIT:
+        raise ValueError(f"dec {dec} with {MD} taps does not fit the "
+                         f"kernel's shared-memory window")
+    threads, _, blocks = partition(n_in // dec, rows, dec, cap)
     out_shape = xr.shape[:-1] + (n_in // dec,)
     yr = torch.empty(out_shape, dtype=torch.float32, device=dev)
     yi = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    nr, ni = torch.empty_like(ctx_r), torch.empty_like(ctx_i)
     th_r = _build.device_constant(hr, dev)
     th_i = _build.device_constant(hi, dev) if cplx else None
     with torch.cuda.device(dev):
@@ -141,17 +178,23 @@ def _launch(xr, xi, taps, dec: int, ctx_r, ctx_i):
             xr.data_ptr(), xi.data_ptr(), ctx_r.data_ptr(),
             ctx_i.data_ptr(), ctx_r.shape[-1], th_r.data_ptr(),
             th_i.data_ptr() if cplx else None, MD, dec, cplx, n_in, rows,
-            k_out, yr.data_ptr(), yi.data_ptr(), stream)
+            threads, blocks, yr.data_ptr(), yi.data_ptr(), nr.data_ptr(),
+            ni.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"decimating FIR kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
-    return yr, yi
+    return yr, yi, nr, ni
 
 
 def _run(xr, xi, taps, dec: int, ctx_r, ctx_i):
+    """(yr, yi, next ctx_r, next ctx_i): the kernel for CUDA tensors, the
+    plain version and copies of each row's last L samples for CPU ones."""
     if xr.device.type == "cpu":
-        return _plain(xr, xi, taps, dec, ctx_r, ctx_i)
+        L = ctx_r.shape[-1]
+        return (*_plain(xr, xi, taps, dec, ctx_r, ctx_i),
+                xr[..., -L:].reshape(ctx_r.shape).clone(),
+                xi[..., -L:].reshape(ctx_i.shape).clone())
     return _launch(xr, xi, taps, dec, ctx_r, ctx_i)
 
 
@@ -167,7 +210,8 @@ def fir_decimate_planar(xr, xi, taps, dec: int, ctx_r, ctx_i,
     ``mode``: "split" or "bf16", both float32 here (see the module
     docstring).  Returns ``(yr, yi, next_ctx_r, next_ctx_i)`` with
     ``yr/yi`` [N // dec] (or [B, N // dec]) and the next context a copy
-    of each row's last dec*128 samples.
+    of each row's last dec*128 samples (written by the kernel's launch
+    on the card).
     """
     taps = np.asarray(taps)
     D = int(dec)
@@ -190,10 +234,9 @@ def fir_decimate_planar(xr, xi, taps, dec: int, ctx_r, ctx_i,
         raise ValueError(f"N={N} must be a multiple of tile_rows*dec*128"
                          f"={tile} (pad upstream or pick a smaller "
                          f"tile_rows)")
-    yr, yi = _run(xr, xi, taps, D, ctx_r, ctx_i)
+    yr, yi, nr, ni = _run(xr, xi, taps, D, ctx_r, ctx_i)
     ctx_shape = (1, W) if xr.ndim == 1 else (xr.shape[0], W)
-    return (yr, yi, xr[..., -W:].reshape(ctx_shape).clone(),
-            xi[..., -W:].reshape(ctx_shape).clone())
+    return yr, yi, nr.reshape(ctx_shape), ni.reshape(ctx_shape)
 
 
 def poly_fir_planar(re, im, taps, ctx_re, ctx_im, dec: int):
@@ -230,8 +273,7 @@ def poly_fir_planar(re, im, taps, ctx_re, ctx_im, dec: int):
     if ctx_re.shape[0] != L:
         raise ValueError(f"ctx must be {L} samples, got {ctx_re.shape[0]}")
     _check_planes(re, im, ctx_re, ctx_im, L)
-    yr, yi = _run(re, im, taps, D, ctx_re, ctx_im)
-    return yr, yi, re[-L:].clone(), im[-L:].clone()
+    return _run(re, im, taps, D, ctx_re, ctx_im)
 
 
 def poly_fir(x, taps, ctx, dec: int):
