@@ -277,19 +277,27 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
 
 
 def conv1d_ms(rows, taps, stride: int, want=None):
-    """The library yardstick of a FIR with real taps: the time of one
-    ``F.conv1d`` call (cuDNN, TF32 off) over ``rows`` [C, L] (each row its
-    T-1 context samples, then the block) with the flipped taps, which
-    computes y[f] = sum_t taps[t] x[f*stride - t].  With ``want`` [C, M]
-    (the kernel's output) it also prints their difference."""
+    """The library yardstick of a FIR: the time of one ``F.conv1d`` call
+    (cuDNN, TF32 off) over ``rows`` [C, L] (each row its T-1 context
+    samples, then the block) with the flipped taps, which computes y[f] =
+    sum_t taps[t] x[f*stride - t].  With complex taps ``rows`` is the re
+    and im planes [2, L], taken as two input channels into two output
+    channels (weights [[hr, -hi], [hi, hr]]).  With ``want`` [C, M] (the
+    kernel's output) it also prints their difference."""
     import torch
     import torch.nn.functional as F
 
-    x = rows[:, None, :].contiguous()
-    w = torch.from_numpy(np.ascontiguousarray(
-        np.asarray(taps, np.float32)[::-1])).to(x.device).view(1, 1, -1)
+    h = np.asarray(taps)[::-1]
+    if np.iscomplexobj(h) and np.any(h.imag):
+        x = rows[None].contiguous()
+        w = np.stack([np.stack([h.real, -h.imag]),
+                      np.stack([h.imag, h.real])])
+    else:
+        x = rows[:, None, :].contiguous()
+        w = h.real[None, None]
+    w = torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(x.device)
     if want is not None:
-        y = F.conv1d(x, w, stride=stride)[:, 0]
+        y = F.conv1d(x, w, stride=stride).reshape(rows.shape[0], -1)
         print(f"conv1d (stride {stride}, {w.shape[-1]} taps) vs kernel: "
               f"{rel_err(y, want):.3g} relative")
     return cuda_ms(lambda: F.conv1d(x, w, stride=stride))
@@ -1420,11 +1428,16 @@ def qpsk_phases(dev, card: str) -> list:
 
     # ---- 10. times at the main paths' shapes
     cz = FK.planar_ctx_zero(dev)
+    c257 = fir_cases["fir_257_complex"]
     timed = {
         "fir_planar": (
             lambda: FK.fir_planar(re, im, cfg.mf_taps, *cz),
             lambda: FK.fir_plain(re, im, cfg.mf_taps, *cz),
             "32 real taps"),
+        "fir_planar_257c": (
+            lambda: FK.fir_planar(re, im, *c257),
+            lambda: FK.fir_plain(re, im, *c257),
+            "257 complex taps, mid-stream context"),
         "qpsk_symbol_gemm": (
             lambda: QS.qpsk_symbol_gemm(re, im, fr, fi, ws, phase0, ctx_mid,
                                         panels_hw=hw),
@@ -1477,7 +1490,12 @@ def qpsk_phases(dev, card: str) -> list:
         torch.nn.functional.pad(torch.stack([re, im]), (T - 1, 0)),
         cfg.mf_taps, 1,
         want=torch.stack(FK.fir_planar(re, im, cfg.mf_taps, *cz)[:2]))
-    print(f"library (F.conv1d) on {card}: fir_planar {lib_fir:.4f} ms")
+    lib_fir257 = conv1d_ms(
+        torch.stack([torch.cat([c257[1].reshape(-1)[-256:], re]),
+                     torch.cat([c257[2].reshape(-1)[-256:], im])]),
+        c257[0], 1, want=torch.stack(FK.fir_planar(re, im, *c257)[:2]))
+    print(f"library (F.conv1d) on {card}: fir_planar {lib_fir:.4f} ms, "
+          f"257 complex taps {lib_fir257:.4f} ms")
 
     def worst(prefix):
         return max(v[0] for k, v in errs.items() if k.startswith(prefix))
@@ -1486,6 +1504,8 @@ def qpsk_phases(dev, card: str) -> list:
                 for k in ("fir_planar", "qpsk_symbol_gemm",
                           "qpsk_symbol_gemm_scalars", "qpsk_panels",
                           "qpsk_symbols", "panel_reductions")}
+    # the 257-tap row is the same kernel as fir_planar: its count
+    launches["fir_planar_257c"] = launches["fir_planar"]
     # Bytes and operations from the shapes: complex taps on complex
     # samples 8 flops a tap at the N/4 symbols (CUDA cores); the four
     # panels 4w multiply-adds a sample (w = 128 + 2hw), in 3xTF32 on the
@@ -1500,8 +1520,13 @@ def qpsk_phases(dev, card: str) -> list:
                                        "qpsk_symbol_gemm_scalars"))
     times["qpsk_symbols"] = (sym_ms, sym_plain_ms)
     table = [
-        ("fir_planar", "fir.cu", "comms_tpu/kernels/fir_pallas.py:253",
-         worst("fir_"), 16 * N, 4 * T * N, 0, lib_fir),
+        ("fir_planar", "decim_fir.cu",
+         "comms_tpu/kernels/fir_pallas.py:253", worst("fir_"), 16 * N,
+         4 * T * N, 0, lib_fir),
+        # the same entry at 257 complex taps: bound by its FMAs
+        ("fir_planar_257c", "decim_fir.cu",
+         "comms_tpu/kernels/fir_pallas.py:253", errs["fir_257_complex"][0],
+         16 * N, 8 * 257 * N, 0, lib_fir257),
         ("qpsk_symbols", "qpsk_sym.cu",
          "comms_tpu/kernels/qpsk_sym_pallas.py:643", sym_err, sym[0],
          sym[1], 0, None),

@@ -5,17 +5,24 @@
 // with the taps zero-padded to MD = D*ceil(T/D), as
 // comms_tpu_torch/ops/fir.py::decimating_branch_taps pads them, x[n < 0]
 // read from the carried context, ctx[ctx_len + n], and x[n >= N] = 0.  One
-// kernel serves two TPU kernels' entries (comms_tpu_torch/kernels/
-// decim_fir.py): comms_tpu/kernels/decim_fir_pallas.py::
-// fir_decimate_planar_pallas (context one row of D*128 samples, a batch
-// of [B, N] rows) and comms_tpu/kernels/poly_fir_pallas.py::
-// poly_fir_pallas_planar (context 8*D*128 samples, taps up to D*128 + 1).
+// kernel serves three TPU kernels' entries: comms_tpu/kernels/
+// decim_fir_pallas.py::fir_decimate_planar_pallas (context one row of
+// D*128 samples, a batch of [B, N] rows) and comms_tpu/kernels/
+// poly_fir_pallas.py::poly_fir_pallas_planar (context 8*D*128 samples,
+// taps up to D*128 + 1), both through comms_tpu_torch/kernels/
+// decim_fir.py, and comms_tpu/kernels/fir_pallas.py::fir_planar_pallas
+// (:253), the dense streaming FIR, through comms_tpu_torch/kernels/fir.py
+// at D = 1 (MD = T up to 1025, context 1024 samples).
 //
 // Bound on the H100: per input sample it reads 8 bytes and writes 8/D;
 // it does MD/D FMAs per plane and output (4 per output and tap with
 // complex taps).  The band monitor's audio FIR (8 x 1,048,576 samples,
 // D = 4, 32 taps) is bound by its bytes (0.025 ms); the K3 entry at 641
 // taps (16,752,640 samples, D = 5) by its FMAs (0.129 ms at 67 TFLOP/s).
+// The dense FIR (D = 1) moves 16 bytes a sample and does 2T (real taps)
+// or 4T (complex) FMAs a sample: at the QPSK matched filter's 32 real
+// taps over 33,554,432 samples its bytes bound it (0.160 ms at 3.35
+// TB/s), at 257 complex taps its FMAs (1.030 ms at 67 TFLOP/s).
 // Design:
 // - persistent blocks (kernels/decim_fir.partition, passed in): T
 //   threads (128, or 64 for small calls), block b walking tiles b,
@@ -47,7 +54,10 @@
 //   apart, which is free of bank conflicts for scalar (D odd), float2
 //   (D = 2, 6) and float4 (D = 4) loads; at D = 8 (two float4 a group,
 //   lanes 6 quads apart) quad k lies at shared quad k ^ ((k >> 3) & 1)
-//   (tests/_k2_replay.py checks every D's loads and copies);
+//   (tests/_k2_replay.py checks every D's loads and copies).  R = 9 at
+//   D = 1, the dense FIR: long complex filters there are issue-bound,
+//   and 9 beat 7 by 7% at 257 complex taps, level at 32 real taps
+//   (tools/k4_compare.py);
 // - D above 8 takes one instantiation with D at run time: one output a
 //   thread, each product read from the window (no ring);
 // - outputs go through a per-warp shared row and leave as float4 stores;
@@ -55,10 +65,12 @@
 //   ctx_len samples), which the wrappers returned as copies before;
 // - each output is one FMA chain over t = 0..MD-1 in ascending order (with
 //   complex taps ar += hr*xr, ar += -hi*xi, ai += hr*xi, ai += hi*xr per
-//   tap), as in the first (one output a thread) form of this kernel, so
-//   the output is bit-identical to it, and chopping a stream anywhere
-//   reproduces the one-shot output bit for bit.
-// The TPU kernel's wide-row layout, 8-row halo alignment and bf16x3
+//   tap), as in the first (one output a thread) form of this kernel and
+//   in the dense FIR's first kernel (a block of 1024 outputs, 4 a
+//   thread, sliding in registers), so the output is bit-identical to
+//   both, and chopping a stream anywhere reproduces the one-shot output
+//   bit for bit.
+// The TPU kernels' wide-row layout, 8-row halo alignment and bf16x3
 // split products are not carried over; complex taps are a plain complex
 // MAC.
 
@@ -71,7 +83,7 @@ constexpr int kThreadsMax = 128;      // threads a block, at most
 constexpr int kStages = 2;            // window buffers a block
 constexpr int kDMax = 8;              // largest D with its own instantiation
 // Outputs a thread by D; entry 0 is the run-time-D path (D > kDMax).
-constexpr int kROfD[kDMax + 1] = {1, 7, 7, 5, 5, 7, 3, 3, 3};
+constexpr int kROfD[kDMax + 1] = {1, 9, 7, 5, 5, 7, 3, 3, 3};
 constexpr int kMaxIn = 1 << 30;       // samples a row, at most
 
 // Taps of one step of q in shared memory: D padded to whole vector loads.

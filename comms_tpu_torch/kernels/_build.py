@@ -149,14 +149,6 @@ def _bind(lib) -> None:
         ptr, ptr, ptr, ptr, ptr,   # audio, halo out re/im, ctx out re/im
         ptr,                       # cudaStream_t
     ]
-    lib.fir_smem_bytes.restype = i64
-    lib.fir_smem_bytes.argtypes = [i32, i32]
-    lib.fir_launch.restype = i32
-    lib.fir_launch.argtypes = [
-        ptr, ptr, ptr, ptr,        # xr, xi, ctx r, ctx i (1024 each)
-        ptr, ptr, i32, i32,        # taps r, taps i, T, complex taps
-        i64, ptr, ptr, ptr,        # samples, yr, yi, cudaStream_t
-    ]
     lib.qpsk_sym_launch.restype = i32
     lib.qpsk_sym_launch.argtypes = [
         ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, MD

@@ -56,7 +56,7 @@ _SMEM_LIMIT = 232448     # bytes of shared memory a block may use (H100)
 # for D above 8, kROfD there), threads a block (the first that gives
 # _MIN_TILES tiles, two an SM; fewer only where shared memory needs it)
 # and persistent blocks at most.
-_R_OF_D = (1, 7, 7, 5, 5, 7, 3, 3, 3)
+_R_OF_D = (1, 9, 7, 5, 5, 7, 3, 3, 3)
 _THREADS = (128, 64)
 _MIN_TILES = 264
 _RUN_BLOCKS = 2112
@@ -89,14 +89,15 @@ def outputs_per_thread(dec: int) -> int:
     return _R_OF_D[dec] if dec < len(_R_OF_D) else _R_OF_D[0]
 
 
-def partition(n_out: int, rows: int, dec: int, max_threads: int = 128):
+def partition(n_out: int, rows: int, dec: int, max_threads: int = 128,
+              run_blocks: int | None = None):
     """The kernel's partition of ``rows`` rows of ``n_out`` outputs:
     ``(threads, tiles, blocks)``.  Tiles of R * ``threads`` consecutive
     outputs of one row (a row's last tile may be partial): 128 threads,
     or 64 when a call has fewer than 264 tiles of 128 threads; at most
-    ``_RUN_BLOCKS`` persistent blocks, block b walking tiles b,
-    b + blocks, ...  ``max_threads`` caps the threads where a window
-    would not fit shared memory."""
+    ``run_blocks`` (default ``_RUN_BLOCKS``) persistent blocks, block b
+    walking tiles b, b + blocks, ...  ``max_threads`` caps the threads
+    where a window would not fit shared memory."""
     R = outputs_per_thread(dec)
     for threads in _THREADS + (32,):
         if threads > max_threads:
@@ -104,7 +105,23 @@ def partition(n_out: int, rows: int, dec: int, max_threads: int = 128):
         tiles = rows * -(-int(n_out) // (R * threads))
         if tiles >= _MIN_TILES or threads == _THREADS[-1]:
             break
-    return threads, tiles, max(1, min(tiles, _RUN_BLOCKS))
+    return threads, tiles, max(1, min(tiles, run_blocks or _RUN_BLOCKS))
+
+
+def _launch_plan(lib, MD: int, dec: int, cplx: int, n_out: int, rows: int,
+                 run_blocks: int | None = None):
+    """``(threads, blocks)`` of a launch: :func:`partition` (at most
+    ``run_blocks`` blocks) with the threads capped (halved from 128)
+    until the window fits shared memory; raises where even 32 do not."""
+    cap = max(_THREADS)
+    while (cap > 32 and lib.decim_fir_smem_bytes(MD, dec, cap, cplx)
+           > _SMEM_LIMIT):
+        cap //= 2
+    if lib.decim_fir_smem_bytes(MD, dec, cap, cplx) > _SMEM_LIMIT:
+        raise ValueError(f"dec {dec} with {MD} taps does not fit the "
+                         f"kernel's shared-memory window")
+    threads, _, blocks = partition(n_out, rows, dec, cap, run_blocks)
+    return threads, blocks
 
 
 def _padded_taps(taps, dec: int):
@@ -142,12 +159,13 @@ def _check_planes(xr, xi, ctx_r, ctx_i, ctx_len: int):
                              f"got shape {tuple(c.shape)}")
 
 
-def _launch(xr, xi, taps, dec: int, ctx_r, ctx_i):
+def _launch(xr, xi, taps, dec: int, ctx_r, ctx_i,
+            run_blocks: int | None = None):
     """The kernel on CUDA planes ([N] or [B, N]) with their context
-    ([..., L] per row); returns (yr, yi, next ctx_r, next ctx_i), the
-    next context (each row's last L samples, shaped as the context)
-    written by the same launch."""
-    global launches
+    ([..., L] per row), at most ``run_blocks`` blocks; returns (yr, yi,
+    next ctx_r, next ctx_i), the next context (each row's last L
+    samples, shaped as the context) written by the same launch.  The
+    callers count the launch: ``kernels/fir`` launches it at D = 1."""
     dev = xr.device
     if dev.type != "cuda":
         raise ValueError(f"the decimating FIR runs on CUDA or CPU tensors, "
@@ -158,14 +176,8 @@ def _launch(xr, xi, taps, dec: int, ctx_r, ctx_i):
     cplx = int(hi is not None)
     n_in = xr.shape[-1]
     rows = 1 if xr.ndim == 1 else xr.shape[0]
-    cap = max(_THREADS)
-    while (cap > 32 and lib.decim_fir_smem_bytes(MD, dec, cap, cplx)
-           > _SMEM_LIMIT):
-        cap //= 2
-    if lib.decim_fir_smem_bytes(MD, dec, cap, cplx) > _SMEM_LIMIT:
-        raise ValueError(f"dec {dec} with {MD} taps does not fit the "
-                         f"kernel's shared-memory window")
-    threads, _, blocks = partition(n_in // dec, rows, dec, cap)
+    threads, blocks = _launch_plan(lib, MD, dec, cplx, n_in // dec, rows,
+                                   run_blocks)
     out_shape = xr.shape[:-1] + (n_in // dec,)
     yr = torch.empty(out_shape, dtype=torch.float32, device=dev)
     yi = torch.empty(out_shape, dtype=torch.float32, device=dev)
@@ -183,19 +195,21 @@ def _launch(xr, xi, taps, dec: int, ctx_r, ctx_i):
     if rc != 0:
         raise RuntimeError(f"decimating FIR kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
     return yr, yi, nr, ni
 
 
 def _run(xr, xi, taps, dec: int, ctx_r, ctx_i):
     """(yr, yi, next ctx_r, next ctx_i): the kernel for CUDA tensors, the
     plain version and copies of each row's last L samples for CPU ones."""
+    global launches
     if xr.device.type == "cpu":
         L = ctx_r.shape[-1]
         return (*_plain(xr, xi, taps, dec, ctx_r, ctx_i),
                 xr[..., -L:].reshape(ctx_r.shape).clone(),
                 xi[..., -L:].reshape(ctx_i.shape).clone())
-    return _launch(xr, xi, taps, dec, ctx_r, ctx_i)
+    out = _launch(xr, xi, taps, dec, ctx_r, ctx_i)
+    launches += 1
+    return out
 
 
 def fir_decimate_planar(xr, xi, taps, dec: int, ctx_r, ctx_i,

@@ -2,23 +2,31 @@
 
     y[n] = sum_{k < T} taps[k] * x[n - k]        (real or complex taps)
 
-over float32 re/im planes with a carried input context.  The kernel,
-``csrc/fir.cu``, replaces the TPU kernel
-``comms_tpu/kernels/fir_pallas.py::fir_planar_pallas`` and keeps its
-contract: T <= :data:`MAX_TAPS`, a context of ``[8, 128]`` planes (the
-1024 samples before the block, of which the last T-1 count), N a
-multiple of ``tile_rows * 128``.  :func:`fir_block` is the complex
+over float32 re/im planes with a carried input context.  The kernel is
+the decimating FIR's, ``csrc/decim_fir.cu``, at D = 1 (MD = T); here it
+replaces the TPU kernel ``comms_tpu/kernels/fir_pallas.py::
+fir_planar_pallas`` and keeps its contract: T <= :data:`MAX_TAPS`, a
+context of ``[8, 128]`` planes (the 1024 samples before the block, of
+which the last T-1 count; the kernel reads them as one row of 1024), N
+a multiple of ``tile_rows * 128``.  :func:`fir_block` is the complex
 drop-in for ``ops.fir.fir_block`` (``fir_block_pallas``).
 
 On the H100 the kernel moves 16 bytes per complex sample and does 2T
 (real taps) or 4T (complex) multiply-adds: memory bounds it at the QPSK
-matched filter's 32 taps.  Both ``mode`` values of the TPU kernel
-("split", its bf16x3 products, and "bf16") compute in float32 on the
-CUDA cores here.
+matched filter's 32 taps.  Persistent blocks walk tiles of consecutive
+outputs (``decim_fir.partition`` at D = 1, at most ``_RUN_BLOCKS``
+blocks), each thread summing R consecutive outputs from a ring of
+samples in registers; the same launch writes the next call's context,
+so a call is one launch.  Each
+output is one FMA chain over k = 0..T-1 in ascending order, so chopping
+a stream reproduces the one-shot output bit for bit.  Both ``mode``
+values of the TPU kernel ("split", its bf16x3 products, and "bf16")
+compute in float32 on the CUDA cores here.
 
 The wrappers launch the kernel for CUDA tensors and run
 :func:`fir_plain` for CPU tensors; any other device raises.  ``launches``
-counts the kernel launches (not the plain runs).  The plain version is
+counts this module's kernel launches (not the plain runs, and not in
+``decim_fir.launches``).  The plain version is
 :func:`comms_tpu_torch.ops.fir.fir_block` (float32 products, TF32 off).
 """
 
@@ -27,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from comms_tpu_torch.kernels import _build
+from comms_tpu_torch.kernels import decim_fir as _DF
 from comms_tpu_torch.ops import fir as _fir
 
 __all__ = ["fir_planar", "fir_block", "planar_ctx_zero",
@@ -37,6 +45,11 @@ _LANES = 128
 _HALO_ROWS = 8
 _CTX = _HALO_ROWS * _LANES
 MAX_TAPS = _CTX + 1
+# Blocks of a launch at most (32 an SM): twice the decimating FIR's.
+# Short filters here are bound by their bytes, and more blocks than
+# slots balance the SMs better (tools/k4_compare.py: 3% faster than 2112
+# at 32 taps, level at 257 complex taps).
+_RUN_BLOCKS = 4224
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -54,15 +67,6 @@ def planar_ctx_from_tail(xr, xi):
     block's planes (the block must hold at least 1024)."""
     return (xr[-_CTX:].reshape(_HALO_ROWS, _LANES),
             xi[-_CTX:].reshape(_HALO_ROWS, _LANES))
-
-
-def _split_taps(taps):
-    """(real part, imaginary part or None) as float32 host arrays."""
-    t = np.asarray(taps)
-    re = np.ascontiguousarray(t.real, np.float32)
-    if not np.iscomplexobj(t) or not np.any(t.imag):
-        return re, None
-    return re, np.ascontiguousarray(t.imag, np.float32)
 
 
 def _check_planes(xr, xi, ctx_r, ctx_i):
@@ -85,28 +89,19 @@ def _check_planes(xr, xi, ctx_r, ctx_i):
 
 
 def _launch(xr, xi, taps, ctx_r, ctx_i):
+    """The decimating-FIR kernel at D = 1 on CUDA planes [N] with their
+    [8, 128] context, read as one row of 1024 samples; returns (yr, yi,
+    next ctx_r, next ctx_i), the next context (the last 1024 samples,
+    [8, 128]) written by the same launch."""
     global launches
-    dev = xr.device
-    if dev.type != "cuda":
-        raise ValueError(f"the FIR runs on CUDA or CPU tensors, got {dev}")
-    lib = _build.load()
-    hr, hi = _split_taps(taps)
-    T = hr.shape[0]
-    cplx = int(hi is not None)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
-    th_r = _build.device_constant(hr, dev)
-    th_i = _build.device_constant(hi, dev) if cplx else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fir_launch(
-            xr.data_ptr(), xi.data_ptr(), ctx_r.data_ptr(), ctx_i.data_ptr(),
-            th_r.data_ptr(), th_i.data_ptr() if cplx else None, T, cplx,
-            xr.shape[0], yr.data_ptr(), yi.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"FIR kernel launch failed: CUDA error {rc}")
+    if xr.device.type != "cuda":
+        raise ValueError(f"the FIR runs on CUDA or CPU tensors, got "
+                         f"{xr.device}")
+    yr, yi, nr, ni = _DF._launch(xr, xi, taps, 1, ctx_r.reshape(1, _CTX),
+                                 ctx_i.reshape(1, _CTX), _RUN_BLOCKS)
     launches += 1
-    return yr, yi
+    return (yr, yi, nr.reshape(_HALO_ROWS, _LANES),
+            ni.reshape(_HALO_ROWS, _LANES))
 
 
 def fir_planar(xr, xi, taps, ctx_r, ctx_i, tile_rows: int = 1024,
@@ -118,7 +113,9 @@ def fir_planar(xr, xi, taps, ctx_r, ctx_i, tile_rows: int = 1024,
     before this block (:func:`planar_ctx_zero` at stream start; only the
     last T-1 count).  ``taps``: host array, real or complex, T <=
     :data:`MAX_TAPS`.  ``mode``: "split" or "bf16", both float32 here.
-    Returns ``(yr, yi, next_ctx_r, next_ctx_i)``.
+    Returns ``(yr, yi, next_ctx_r, next_ctx_i)``, the next context the
+    block's last 1024 samples as [8, 128] planes (written by the
+    kernel's launch on the card).
     """
     taps = np.asarray(taps)
     T = taps.shape[0]
@@ -135,10 +132,9 @@ def fir_planar(xr, xi, taps, ctx_r, ctx_i, tile_rows: int = 1024,
         raise ValueError(f"N={N} must be a multiple of "
                          f"tile_rows*128={tile} (pad upstream or pick a "
                          f"smaller tile_rows)")
-    if xr.device.type == "cpu":
-        yr, yi = fir_plain(xr, xi, taps, ctx_r, ctx_i)
-    else:
-        yr, yi = _launch(xr, xi, taps, ctx_r, ctx_i)
+    if xr.device.type != "cpu":
+        return _launch(xr, xi, taps, ctx_r, ctx_i)
+    yr, yi = fir_plain(xr, xi, taps, ctx_r, ctx_i)
     return (yr, yi, xr[-_CTX:].reshape(_HALO_ROWS, _LANES).clone(),
             xi[-_CTX:].reshape(_HALO_ROWS, _LANES).clone())
 

@@ -293,3 +293,27 @@ def store_wavefronts(D):
     R = outputs_per_thread(D)
     lane = np.arange(32)
     return max(_wavefronts(lane * R + r, 32, 32) for r in range(R)), 1
+
+
+# K4, the dense streaming FIR (comms_tpu_torch/kernels/fir.py), is this
+# kernel at D = 1 (MD = T up to 1025) with its [8, 128] context planes
+# read as one row of 1024 samples.
+K4_CTX = 1024
+
+
+def k4_replay(xr, xi, taps, ctx_r, ctx_i):
+    """K4's outputs through the kernel's plan: planes [N], context
+    [8, 128] (flat, one row of ``K4_CTX``); ``(yr, yi)`` [N]."""
+    yr, yi = k2_replay(xr[None], xi[None], taps, 1,
+                       (ctx_r.reshape(1, K4_CTX), ctx_i.reshape(1, K4_CTX)))
+    return yr[0], yi[0]
+
+
+def next_context(x, rows, ctx_len):
+    """The next context the launch writes, element e of rows * ctx_len
+    read from plane sample row * n_in + n_in - ctx_len + (e mod ctx_len)
+    of ``x`` [rows * n_in] (the kernel's index arithmetic), flat."""
+    n_in = x.size // rows
+    e = np.arange(rows * ctx_len)
+    row = e // ctx_len
+    return x[row * n_in + n_in - ctx_len + (e - row * ctx_len)]

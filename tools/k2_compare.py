@@ -14,7 +14,8 @@ run of outputs, one output a thread) has the package's C entry with
 outputs a block in place of the partition (threads a block, blocks); it
 is built from the directory and swapped in under the package's wrappers,
 so both run the same host code (its outputs a block chosen by its own
-rule: 256, halved until its window fits).  Beside it the script builds
+rule: 256, halved until its window fits).  An earlier kernel from
+28f7200 on has the package's C entry and is called as the package's.  Beside it the script builds
 the ``VARIANTS``, the package's ``csrc/decim_fir.cu`` with one design
 choice changed (``stages1``: one window buffer, the next window copied
 once the block has read the current one; ``r3``: 3 outputs a thread at
@@ -78,8 +79,8 @@ K2_ROWS, K2_N = 8, 1 << 20
 POLY_N = cs.POLY_N
 VARIANTS = {
     "stages1": [("constexpr int kStages = 2;", "constexpr int kStages = 1;")],
-    "r3": [("{1, 7, 7, 5, 5, 7, 3, 3, 3}", "{1, 7, 7, 5, 3, 3, 3, 3, 3}")],
-    "r5": [("{1, 7, 7, 5, 5, 7, 3, 3, 3}", "{1, 7, 7, 5, 5, 5, 3, 3, 3}")],
+    "r3": [("{1, 9, 7, 5, 5, 7, 3, 3, 3}", "{1, 9, 7, 5, 3, 3, 3, 3, 3}")],
+    "r5": [("{1, 9, 7, 5, 5, 7, 3, 3, 3}", "{1, 9, 7, 5, 5, 5, 3, 3, 3}")],
 }
 PROBES = {
     "p_no_copy": [("      if (ahead < s.tiles) {\n        load_window",
@@ -88,8 +89,8 @@ PROBES = {
                      "  }")],
 }
 # The wrapper's constants a variant needs (its outputs a thread).
-VARIANT_CONSTS = {"r3": {"_R_OF_D": (1, 7, 7, 5, 3, 3, 3, 3, 3)},
-                  "r5": {"_R_OF_D": (1, 7, 7, 5, 5, 5, 3, 3, 3)}}
+VARIANT_CONSTS = {"r3": {"_R_OF_D": (1, 9, 7, 5, 3, 3, 3, 3, 3)},
+                  "r5": {"_R_OF_D": (1, 9, 7, 5, 5, 5, 3, 3, 3)}}
 PARTITIONS = {"blocks_528": {"_RUN_BLOCKS": 528},
               "blocks_1056": {"_RUN_BLOCKS": 1056},
               "blocks_1584": {"_RUN_BLOCKS": 1584},
@@ -218,6 +219,8 @@ def main(before_dir: Path, quick: bool) -> int:
                          f"usage)")
     csrc = _build.CSRC_DIR
     sources = {"before": before_dir / "decim_fir.cu"}
+    # up to 0020f28 the C entry takes outputs a block, not the partition
+    earlier = "int threads, int blocks" not in sources["before"].read_text()
     for name, edits in ({} if quick else {**VARIANTS, **PROBES}).items():
         text = (csrc / "decim_fir.cu").read_text()
         for old, new in edits:
@@ -256,15 +259,16 @@ def main(before_dir: Path, quick: bool) -> int:
     for d in (4, 5):
         sass[f"package_D{d}"] = sass_histogram(
             _build.library_path(), f"decim_fir_kernelILi{d}ELb0E")
-    sass["before"] = sass_histogram(sources["before"].with_suffix(".so"),
-                                    "decim_fir_kernelILb0E")
+    sass["before"] = sass_histogram(
+        sources["before"].with_suffix(".so"),
+        "decim_fir_kernelILb0E" if earlier else "decim_fir_kernelILi4ELb0E")
     for k, hist in sass.items():
         print(f"SASS of decim_fir_kernel, {k}:", json.dumps(hist))
     (before_dir / "k2_sass.txt").write_text(
         sass_text(_build.library_path(), "decim_fir_kernel"))
     libs = {k: ctypes.CDLL(str(src.with_suffix(".so")))
             for k, src in sources.items()}
-    before = bind(libs.pop("before"), True)
+    before = bind(libs.pop("before"), earlier)
     libs = {k: bind(v, False) for k, v in libs.items()}
 
     dev = torch.device("cuda")
@@ -334,7 +338,7 @@ def main(before_dir: Path, quick: bool) -> int:
         L = c.shape[-1]
         same(f"{key}_next_ctx", nxt, (a[..., -L:].reshape(nxt[0].shape),
                                       b[..., -L:].reshape(nxt[1].shape)))
-        with kernel_of(before, earlier=True):
+        with kernel_of(before, earlier=earlier):
             same(f"{key}_before", got, call(case))
         same(f"{key}_again", got, call(case))
         if not quick:
@@ -391,7 +395,8 @@ def main(before_dir: Path, quick: bool) -> int:
             continue
         t = {}
         for who in ("before", "package", "package", "before"):
-            with kernel_of(before if who == "before" else None, True):
+            with kernel_of(before if who == "before" else None,
+                           earlier):
                 t.setdefault(who, []).append(cs.cuda_ms(lambda: call(case)))
         t["speedup"] = sum(t["before"]) / sum(t["package"])
         t["plain"] = cs.cuda_ms(lambda: plain(case))
@@ -414,7 +419,7 @@ def main(before_dir: Path, quick: bool) -> int:
     if not quick:
         case = cases["k3_641"]
         load["package"] = sm_clock_under_load(lambda: call(case))
-        with kernel_of(before, earlier=True):
+        with kernel_of(before, earlier=earlier):
             load["before"] = sm_clock_under_load(lambda: call(case))
         print("under back-to-back 641-tap calls, nvidia-smi (min, median, "
               "max):", json.dumps(load))
