@@ -50,10 +50,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    capture), the FIR kernel (the matched filter's 32 real taps, and 257
    complex taps from a mid-stream context), the symbol kernel's three
    entries with panels at halfwidth 51 (zero and carried context) and
-   the panel reductions against their plain versions; panels repeat bit
-   for bit, and stay within 1e-5 of the panels of float64 planes at 2^19,
-   2^22 and 2^25 samples; the kernel route against the tensor route at
-   one IN_PER_STEP block;
+   the panel reductions against their plain versions (twice on the same
+   panels, bit for bit); panels repeat bit for bit, and stay within 1e-5
+   of the panels of float64 planes at 2^19, 2^22 and 2^25 samples; the
+   kernel route against the tensor route at one IN_PER_STEP block;
 9. QPSK main paths: the one-shot receiver (fused core: the symbol
    kernel's panel and ``_scalars`` entries) and the staged core (the FIR
    kernel) on the capture, zero bit errors over the whole capture, the
@@ -103,7 +103,10 @@ Phases (each raises on failure, so any failure exits non-zero):
 15. the ring halo exchange kernel (K12) against its plain version bit for
    bit, at the sharded paths' halos (complex64, float32 and u8 tails, the
    wrapped and the carried-context forms, the 2-D column rings, both
-   planes in one launch) and on a 1 MiB-per-shard ring;
+   planes in one launch) and on a 1 MiB-per-shard ring; then byte for
+   byte over a sweep of the sources' byte offsets 0..15 x lengths 1, 15,
+   16, 17, 4,095 and 25,669 elements and 1 MiB, for u8, float32 and
+   complex64, wrapped and with contexts;
 16. the sharded layer on an 8-shard mesh of the card (the counts of every
    kernel start at 0 before each path and are read after it): the sharded
    wideband chain at 26,214,400 samples against the same chain on one
@@ -118,7 +121,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    against ``welch_psd``; K12's launches per path and each path's
    per-shard kernel launches;
 17. ``dryrun_multichip(8)`` on the card, and K12's kernel, plain-version,
-   bound and library (``torch._foreach_copy_``) times.
+   bound and library (``torch._foreach_copy_``) times beside the launch
+   floor (an empty kernel with K12's 2 KB and with a 16-byte parameter
+   block), and the wrapper's host µs per call (100 unsynchronised calls).
+   Phase 10 prints the floor beside the panel reductions' time too.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
@@ -1132,6 +1138,7 @@ def qpsk_phases(dev, card: str) -> list:
     import torch
 
     from comms_tpu_torch.kernels import fir as FK
+    from comms_tpu_torch.kernels import halo_ring as HR
     from comms_tpu_torch.kernels import panel_reduce as PR
     from comms_tpu_torch.kernels import qpsk_sym as QS
     from comms_tpu_torch.models import qpsk_rx as trx
@@ -1268,8 +1275,11 @@ def qpsk_phases(dev, card: str) -> list:
     p13[:128, :width], p13[128:, :width] = qp[0], qp[2]
     p24[:128, :width], p24[128:, :width] = -qp[1], -qp[3]
     red = PR.panel_reductions(p13, p24, hw)
+    red_again = PR.panel_reductions(p13, p24, hw)
     red_plain = PR.panel_reductions_plain(p13, p24, hw)
     torch.cuda.synchronize()
+    if not torch.equal(red, red_again):
+        fail("panel reductions: two calls on the same panels differ")
     rows = [0, 1] + [8 + a for a in range(cfg.sps)]
     V = 2 * hw + 1
     errs["panel_reductions"] = rel(red[rows][:, :V], red_plain[rows][:, :V])
@@ -1468,6 +1478,10 @@ def qpsk_phases(dev, card: str) -> list:
         times[name] = (ms, plain_ms)
         print(f"{name} at N={QPSK_N} ({what}) on {card}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
+    floor_ms = cuda_ms(lambda: HR.launch_floor(False, 1))
+    print(f"launch floor (the empty kernel, 16-byte parameters, one block) "
+          f"on {card}: {floor_ms:.4f} ms, beside panel_reductions' "
+          f"{times['panel_reductions'][0]:.4f}")
     sym_ms = cuda_ms(lambda: QS.qpsk_symbol_gemm(re, im, fr, fi, ws, phase0,
                                                  ctx_mid))
     sym_plain_ms = cuda_ms(lambda: QS.qpsk_symbol_plain(re, im, fr, fi, ws,
@@ -2124,6 +2138,64 @@ def fm_u8_planes(n: int, seed: int, dev):
     return re, im
 
 
+K12_SWEEP_LENGTHS = (1, 15, 16, 17, 4095, 25669, 1 << 20)
+
+
+def k12_offset_sweep(HR, dev, gen) -> int:
+    """K12 against its plain version byte for byte over a sweep: u8,
+    float32 and complex64; every source byte offset 0..15 that the
+    dtype's size allows; lengths of ``K12_SWEEP_LENGTHS`` elements (the
+    last in bytes, 1 MiB); 2 rings of 4 shards whose tails start at
+    offsets off, off + 5 es, ... (mod 16), each shard 16 bytes and its
+    tail cut from a fresh byte buffer; wrapped and with contexts.
+    Returns the number of calls."""
+    import torch
+
+    calls = 0
+    for dtype in (torch.uint8, torch.float32, torch.complex64):
+        es = torch.empty(0, dtype=dtype).element_size()
+        for n in K12_SWEEP_LENGTHS:
+            length = n if n < (1 << 20) else n // es
+            for off in range(0, 16, es):
+                def shard(o):
+                    buf = torch.randint(0, 256, (32 + length * es,),
+                                        generator=gen, device=dev,
+                                        dtype=torch.uint8)
+                    return buf[o:o + 16 + length * es].view(dtype)
+                rings = [[shard((off + 5 * i * es) % 16) for i in range(4)]
+                         for _ in range(2)]
+                ctxs = [shard(0)[-length:] for _ in rings]
+                for c in (None, ctxs):
+                    got = HR.exchange(rings, length, c)
+                    want = HR.exchange_plain(rings, length, c)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    for ga, wa in zip(got, want):
+                        for a, b in zip(ga, wa):
+                            if not torch.equal(a.view(torch.uint8),
+                                               b.view(torch.uint8)):
+                                fail(f"K12 sweep: {dtype} length {length} "
+                                     f"offset {off}: kernel and plain "
+                                     f"differ")
+    return calls
+
+
+def k12_host_us(HR, rings, halo: int, calls: int = 100) -> float:
+    """The host's µs per call of K12's wrapper: ``time.perf_counter`` over
+    ``calls`` unsynchronised calls after 20 warm-up calls."""
+    import torch
+
+    for _ in range(20):
+        HR.exchange(rings, halo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        HR.exchange(rings, halo)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def sharded_phases(dev, card: str) -> list:
     """Phases 15-17: the sharded layer on an 8-shard mesh of the card; the
     kernel table row of K12."""
@@ -2189,7 +2261,7 @@ def sharded_phases(dev, card: str) -> list:
     }
     L0 = HR.launches
     k12_err = 0.0
-    widths = {}
+    offsets = {}
     for name, (rings, halo, with_ctx) in cases.items():
         ctxs = ([torch.zeros_like(r[0][:halo]) + 0.5 for r in rings]
                 if with_ctx else None)
@@ -2198,9 +2270,8 @@ def sharded_phases(dev, card: str) -> list:
         got = HR.exchange(rings, halo, ctxs)
         want = HR.exchange_plain(rings, halo, ctxs)
         torch.cuda.synchronize()
-        t = rings[0][0][-halo:]
-        widths[name] = HR.copy_width([t.data_ptr()],
-                                     t.numel() * t.element_size())
+        offsets[name] = sorted({HR.source_offset(x[-halo:].data_ptr())
+                                for r in rings for x in r})
         for ga, wa in zip(got, want):
             for a, b in zip(ga, wa):
                 if not torch.equal(a, b):
@@ -2210,8 +2281,17 @@ def sharded_phases(dev, card: str) -> list:
     if HR.launches - L0 != len(cases):
         fail(f"K12 checks: {HR.launches - L0} launches for {len(cases)} "
              f"calls")
-    print(f"K12 kernel == plain bit for bit on {len(cases)} forms; copy "
-          f"widths (bytes): {json.dumps(widths)}")
+    print(f"K12 kernel == plain bit for bit on {len(cases)} forms; the "
+          f"sources' byte offsets in their 16-byte words: "
+          f"{json.dumps(offsets)}")
+    L0 = HR.launches
+    n_sweep = k12_offset_sweep(HR, dev, g)
+    if HR.launches - L0 != n_sweep:
+        fail(f"K12 sweep: {HR.launches - L0} launches for {n_sweep} calls")
+    print(f"K12 kernel == plain byte for byte over the sweep: {n_sweep} "
+          f"calls (u8, float32, complex64; source offsets 0..15 by the "
+          f"dtype's size; lengths {K12_SWEEP_LENGTHS[:-1]} elements and "
+          f"1 MiB; wrapped and with contexts)")
 
     # ---- 16a. the sharded wideband chain at BLOCK (per shard BLOCK / 8):
     # within 1e-4 of the same chain on one shard, the rdma_halo build bit
@@ -2485,6 +2565,20 @@ def sharded_phases(dev, card: str) -> list:
                            if lib else None),
             "bound_ms": bound(2 * pairs_n * nbytes, 0)[0]}
     print(f"K12 times on {card} (wrapped form):", json.dumps(times))
+    # the launch floor: the empty kernel of csrc/halo_ring.cu with K12's
+    # 2 KB parameter block and with a 16-byte one, at one block and at the
+    # fused tails' grid (4 blocks a pair, 16 pairs)
+    floor = {f"{'2KB' if big else '16B'}_{blocks}": cuda_ms(
+        lambda: HR.launch_floor(big, blocks))
+        for big in (True, False) for blocks in (1, 64)}
+    print(f"launch floor on {card}, ms:", json.dumps(floor))
+    rings_u8 = cases["fused_raw_tails_u8"][0]
+    host = {"fused_raw_tails_u8 (16 pairs)": k12_host_us(
+                HR, rings_u8, fm.FUSED_TAIL_SAMPLES),
+            "iq_halo_c64 (8 pairs)": k12_host_us(
+                HR, cases["iq_halo_c64"][0], T - 1)}
+    print("K12 host us per call (100 unsynchronised calls):",
+          json.dumps(host))
     row = times["fused_raw_tails_u8"]
     return [kernel_row("ring_halo_exchange", "halo_ring.cu",
                        "comms_tpu/kernels/halo_rdma.py:84",

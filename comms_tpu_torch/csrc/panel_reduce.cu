@@ -16,13 +16,19 @@
 //            polynomial of fm_chain_pallas._atan2, which K11 imports);
 //   every other entry 0 (the TPU kernel leaves them unwritten).
 //
-// Bound on the H100: it reads 512 KB and does ~(2hw+1)*128*12 flops, a
-// few microseconds at any layout; the launch costs more.  One block of
-// 128 threads: thread v walks the 128 rows of its diagonal in order (no
-// atomics, deterministic), so the three sums of a lag share one pass.
-// The TPU kernel's iota shear masks over the whole [128, 256] panel per
-// lag (needed there because Mosaic has no gather) are not carried over.
-// hw <= 63: at hw = 64 the TPU kernel's 128 lanes drop the v = +hw lag.
+// Bound on the H100: it reads at most 128 * (2hw+1) * 4 panel entries
+// (~211 KB at hw = 51) and does ~(2hw+1)*128*12 flops, well under a
+// microsecond at any layout; the launch costs more.  Design: one block of
+// kGroups * 128 threads, thread (g, v) summing lag v over the kGroupRows
+// rows of row group g, its loads issued kBatch rows at a time before the
+// arithmetic; c2/s2 once per residue a < sps (the same sincosf of the
+// same float angle as a per-row evaluation) in shared memory; the
+// groups' partial sums combined in shared memory in group order (no
+// atomics: repeated calls give the same bits); every output entry
+// written once, zeros included.  The TPU kernel's iota shear masks over
+// the whole [128, 256] panel per lag (needed there because Mosaic has no
+// gather) are not carried over.  hw <= 63: at hw = 64 the TPU kernel's
+// 128 lanes drop the v = +hw lag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,41 +39,90 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kOutRows = 16;
+constexpr int kRows = 128;                      // panel rows j
+constexpr int kGroups = 8;                      // row groups
+constexpr int kGroupRows = kRows / kGroups;
+constexpr int kBatch = 8;                       // rows of loads in flight
+constexpr int kThreads = kGroups * kLanes;
+constexpr int kSums = 2 + 8;                    // gr, gi, one per residue
 
-__global__ void panel_reduce_kernel(const float* __restrict__ p13,
-                                    const float* __restrict__ p24, int hw,
-                                    int sps, float* __restrict__ out) {
-  const int v = threadIdx.x;
-  for (int r = 0; r < kOutRows; ++r) out[r * kLanes + v] = 0.f;
-  __syncthreads();
-  if (v > 2 * hw) return;
-  const float dphi = static_cast<float>(2.0 * 3.14159265358979323846 / sps);
-  float gr = 0.f, gi = 0.f;
-  float ga[8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a) ga[a] = 0.f;
-  for (int j = 0; j < kLanes; ++j) {
-    const int c = j + v;                      // <= 127 + 126 < 256
-    const int a = j % sps;
+__global__ void __launch_bounds__(kThreads)
+    panel_reduce_kernel(const float* __restrict__ p13,
+                        const float* __restrict__ p24, int hw, int sps,
+                        float* __restrict__ out) {
+  __shared__ float cs[2][8];
+  __shared__ float part[kGroups][kSums][kLanes];
+  const int t = threadIdx.x;
+  const int v = t % kLanes;
+  const int g = t / kLanes;
+  if (t < sps) {
+    const float dphi = static_cast<float>(2.0 * 3.14159265358979323846 / sps);
     float s2, c2;
-    sincosf(__fmul_rn(static_cast<float>(a), dphi), &s2, &c2);
-    const float P1 = p13[j * 256 + c];
-    const float P3 = p13[(kLanes + j) * 256 + c];
-    const float P2 = -p24[j * 256 + c];
-    const float P4 = -p24[(kLanes + j) * 256 + c];
-    const float er = (c2 * P1 + s2 * P3) - (c2 * P4 - s2 * P2);
-    const float ei = (c2 * P2 + s2 * P4) + (c2 * P3 - s2 * P1);
-    gr += er;
-    gi += ei;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      if (b == a) ga[b] += er;
-    }
+    sincosf(__fmul_rn(static_cast<float>(t), dphi), &s2, &c2);
+    cs[0][t] = c2;
+    cs[1][t] = s2;
   }
-  out[0 * kLanes + v] = gr;
-  out[1 * kLanes + v] = gi;
-  for (int a = 0; a < sps; ++a) out[(8 + a) * kLanes + v] = ga[a];
-  if (v == hw - 1) out[2 * kLanes] = atan2_poly(gi, gr);
+  __syncthreads();
+  if (v <= 2 * hw) {
+    float gr = 0.f, gi = 0.f;
+    float ga[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) ga[b] = 0.f;
+    int a = (g * kGroupRows) % sps;
+#pragma unroll
+    for (int i0 = 0; i0 < kGroupRows; i0 += kBatch) {
+      float P1[kBatch], P2[kBatch], P3[kBatch], P4[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int j = g * kGroupRows + i0 + i;
+        const int c = j + v;                    // <= 127 + 126 < 256
+        P1[i] = p13[j * 256 + c];
+        P3[i] = p13[(kLanes + j) * 256 + c];
+        P2[i] = -p24[j * 256 + c];
+        P4[i] = -p24[(kLanes + j) * 256 + c];
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const float c2 = cs[0][a], s2 = cs[1][a];
+        const float er = (c2 * P1[i] + s2 * P3[i]) - (c2 * P4[i] - s2 * P2[i]);
+        const float ei = (c2 * P2[i] + s2 * P4[i]) + (c2 * P3[i] - s2 * P1[i]);
+        gr += er;
+        gi += ei;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          if (b == a) ga[b] += er;
+        }
+        a = a + 1 == sps ? 0 : a + 1;
+      }
+    }
+    part[g][0][v] = gr;
+    part[g][1][v] = gi;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) part[g][2 + b][v] = ga[b];
+  }
+  __syncthreads();
+  // Every entry of out once: entry e = t + k * kThreads, row e / 128.
+#pragma unroll
+  for (int k = 0; k < kOutRows * kLanes / kThreads; ++k) {
+    const int e = t + k * kThreads;
+    const int row = e / kLanes, lane = e % kLanes;
+    int s = -1;
+    if (row == 0 || row == 1) s = row;
+    if (row >= 8 && row - 8 < sps) s = 2 + row - 8;
+    float val = 0.f;
+    if (s >= 0 && lane <= 2 * hw) {
+      for (int gg = 0; gg < kGroups; ++gg) val += part[gg][s][lane];
+    }
+    if (row == 2 && lane == 0) {
+      float gr = 0.f, gi = 0.f;
+      for (int gg = 0; gg < kGroups; ++gg) {
+        gr += part[gg][0][hw - 1];
+        gi += part[gg][1][hw - 1];
+      }
+      val = atan2_poly(gi, gr);
+    }
+    out[e] = val;
+  }
 }
 
 }  // namespace
@@ -80,7 +135,7 @@ extern "C" int panel_reduce_launch(const void* p13, const void* p24, int hw,
   if (hw <= 0 || hw > 63 || sps < 1 || sps > 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  panel_reduce_kernel<<<1, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+  panel_reduce_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p13), static_cast<const float*>(p24), hw, sps,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

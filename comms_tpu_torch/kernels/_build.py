@@ -206,8 +206,12 @@ def _bind(lib) -> None:
     lib.halo_ring_max_pairs.argtypes = []
     lib.halo_ring_launch.restype = i32
     lib.halo_ring_launch.argtypes = [
-        ctypes.POINTER(ptr), ctypes.POINTER(ptr),   # host arrays: srcs, dsts
+        ptr,                       # host array (bytes): srcs, then dsts
         i32, i64, ptr,             # pairs, bytes each, cudaStream_t
+    ]
+    lib.halo_ring_floor_launch.restype = i32
+    lib.halo_ring_floor_launch.argtypes = [
+        i32, i32, ptr,             # 2 KB parameter block?, blocks, stream
     ]
 
 
