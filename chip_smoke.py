@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the FM broadcast
 receiver, the wideband FM band monitor, the QPSK receiver, FFT and Welch
-spectrum monitoring, and the sharded layer on an 8-shard mesh of the
-card.
+spectrum monitoring, the sharded layer on an 8-shard mesh of the card,
+and the BPSK and QPSK transmitters.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -124,12 +124,27 @@ Phases (each raises on failure, so any failure exits non-zero):
    bound and library (``torch._foreach_copy_``) times beside the launch
    floor (an empty kernel with K12's 2 KB and with a 16-byte parameter
    block), and the wrapper's host µs per call (100 unsynchronised calls).
-   Phase 10 prints the floor beside the panel reductions' time too.
+   Phase 10 prints the floor beside the panel reductions' time too;
+18. transmit (no kernel of its own): the BPSK and QPSK transmitters'
+   fast paths at 16,777,216 samples a block (QPSK with its mixer at
+   dphase 0.01, phase0 0.6) and pair paths at the reference's 4096-symbol
+   and 4096-bit blocks; one block of each on the card against the CPU
+   (the drawn bits and the fast paths' packed words and states bit for
+   bit, the pair paths within 1 LSB), 3 chained blocks of each against a
+   float64 oracle built on the card from the bits the port's threefry
+   drew (within 1 LSB, under 1% of samples differing); a loopback of
+   2^24 bits (33,554,432 samples) with QPSK's carrier offset, phase and
+   noise through the one-shot receiver and the staged core (zero bit
+   errors) and K11 on its panels, with the one-shot phase's launch
+   counts; each fast path served through ``StreamRunner`` with no sink
+   and with a copying sink (Msps), the host's enqueue ms, the device ms
+   a block, and ``torch.profiler`` splits of one block and of 8 served
+   blocks (device operations, busy share).
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
 torch on the card for the QPSK capture, torch on the card for the
-spectrum captures).  The line before the last is the kernel table as
+spectrum captures, the port's threefry for the transmitters).  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -201,6 +216,13 @@ TOL_ROUTE = 1e-3
 TOL_REDUCE = 1e-4
 TOL_STREAM_SYM = 2e-3   # fast vs fused stream step (the JAX test's)
 TOL_STREAM_STATE = 1e-3
+# Kernel launches of the one-shot phase (9a): the fused receiver (K5's
+# panels, its ``_scalars`` symbol entry), the staged core (K4, the matched
+# filter) and K11 on the capture's panels, no plain version.
+QPSK_ONE_SHOT_LAUNCHES = {"qpsk_panels": 1, "qpsk_symbol_gemm": 1,
+                          "qpsk_symbol_gemm_scalars": 1, "qpsk_symbols": 1,
+                          "fir_planar": 1, "panel_reductions": 1,
+                          "plain": 0}
 
 # FFT and spectrum monitoring: the Welch serving block and FFT rows of
 # bench.py:796-940 (16,777,216 samples, 1024 bins), the FFT kernel's
@@ -239,6 +261,24 @@ SH_SHARDS = 8
 SH_RING_MIB = 1 << 20
 TOL_SH_CHAIN = 1e-4
 TOL_SH_2D = 1e-5
+
+# Transmit: the fast paths at bench.py's blocks (BPSK 2^22 symbols,
+# bench.py:358, and QPSK 2^23 bits, bench.py:394: 16,777,216 samples
+# each), QPSK with its mixer on; the pair paths at the reference's block
+# (4096 symbols, 4096 bits).  Each path's chained blocks are held to a
+# float64 oracle built on the card from the bits the port's PRNG drew:
+# within 1 LSB, under 1% of samples differing (the JAX tests' bounds,
+# tests/test_models.py:55-57).  The loopback sends 2^24 bits (33,554,432
+# samples, QPSK_N) with QPSK_CFO and QPSK_PHASE through the mixer, adds
+# QPSK_NOISE, and decodes them with the port's QPSK receiver.
+TX_BPSK_SYMS = 1 << 22
+TX_QPSK_BITS = 1 << 23
+TX_DPHASE, TX_PHASE0 = 0.01, 0.6
+TX_PAIR = 4096
+TX_CHAIN = 3
+TX_LOOP_BITS = 1 << 24
+TX_SEED = 7
+TX_LSB_SHARE = 0.01
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at its 700 W
 # limit): a kernel's bound is the largest of its bytes over the memory
@@ -1345,10 +1385,7 @@ def qpsk_phases(dev, card: str) -> list:
                        "panel_reductions": PR.launches,
                        "plain": plain_calls[0]}
     print("QPSK one-shot main path launches:", json.dumps(one_shot_counts))
-    want = {"qpsk_panels": 1, "qpsk_symbol_gemm": 1,
-            "qpsk_symbol_gemm_scalars": 1, "qpsk_symbols": 1,
-            "fir_planar": 1,
-            "panel_reductions": 1, "plain": 0}
+    want = QPSK_ONE_SHOT_LAUNCHES
     if one_shot_counts != want:
         fail(f"one-shot launches {one_shot_counts}, expected {want}")
 
@@ -2587,6 +2624,308 @@ def sharded_phases(dev, card: str) -> list:
                        0, row["library_ms"])]
 
 
+def tx_oracle_card(bits, qpsk: bool, dphase: float = 0.0,
+                   phase0: float = 0.0):
+    """int16 pairs [N, 2] on the card: the reference transmit chain in
+    float64 from ``bits`` (a tensor on the card): the symbol map (2b - 1;
+    QPSK from consecutive bit pairs), zero-stuffing x4, the 32 RRC taps
+    (sps 4, beta 0.25) as 32 shifted multiply-adds from a zero state, the
+    mixer exp(j*(phase0 + n*dphase)), *8192, truncate and saturate."""
+    import torch
+
+    from comms_tpu_torch.ops import taps as ttaps
+
+    b = bits.to(torch.float64)
+    syms = (2 * b[0::2] - 1, 2 * b[1::2] - 1) if qpsk else (2 * b - 1,)
+    n = 4 * syms[0].shape[0]
+    h = np.real(ttaps.rrc_taps(32, 4.0, 0.25))
+    ys = []
+    for sym in syms:
+        up = torch.zeros(n, dtype=torch.float64, device=b.device)
+        up[::4] = sym
+        y = torch.zeros_like(up)
+        for k, hk in enumerate(h):
+            y[k:] += float(hk) * up[:n - k]
+        ys.append(y)
+    yr = ys[0]
+    yi = ys[1] if qpsk else torch.zeros_like(yr)
+    if dphase:
+        ph = phase0 + dphase * torch.arange(n, dtype=torch.float64,
+                                            device=b.device)
+        c, s_ = torch.cos(ph), torch.sin(ph)
+        yr, yi = yr * c - yi * s_, yr * s_ + yi * c
+    q = torch.stack([yr, yi], dim=-1) * 8192.0
+    return torch.clamp(torch.trunc(q), -32768, 32767).to(torch.int16)
+
+
+def tx_pairs(out):
+    """int16 pairs [N, 2] of a transmit block's output on its device: the
+    pair path's rows, or the fast path's int32 words viewed as two int16
+    (little-endian: re in the low half)."""
+    import torch
+
+    if out.dtype == torch.int32:
+        return out.view(torch.int16).reshape(-1, 2)
+    return out
+
+
+def lsb_diff_card(got, want):
+    """(largest i16 difference, share of samples that differ)."""
+    import torch
+
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    return int(d.max()), float((d.amax(1) > 0).double().mean())
+
+
+def transmit_phases(dev, card: str) -> None:
+    """Phase 18: the BPSK and QPSK transmitters, both block paths."""
+    import torch
+
+    from comms_tpu_torch.kernels import fir as FK
+    from comms_tpu_torch.kernels import panel_reduce as PR
+    from comms_tpu_torch.kernels import qpsk_sym as QS
+    from comms_tpu_torch.models import bpsk_tx as tb
+    from comms_tpu_torch.models import qpsk_rx as trx
+    from comms_tpu_torch.models import qpsk_tx as tq
+    from comms_tpu_torch.ops import random as trand
+    from comms_tpu_torch.runtime import StreamRunner
+
+    paths = {
+        "bpsk_fast": (tb, tb.BpskTxConfig(syms_per_block=TX_BPSK_SYMS),
+                      True, TX_BPSK_SYMS),
+        "qpsk_fast": (tq, tq.QpskTxConfig(bits_per_block=TX_QPSK_BITS,
+                                          dphase=TX_DPHASE,
+                                          phase0=TX_PHASE0),
+                      True, TX_QPSK_BITS),
+        "bpsk_pair": (tb, tb.BpskTxConfig(syms_per_block=TX_PAIR), False,
+                      TX_PAIR),
+        "qpsk_pair": (tq, tq.QpskTxConfig(bits_per_block=TX_PAIR,
+                                          dphase=TX_DPHASE,
+                                          phase0=TX_PHASE0),
+                      False, TX_PAIR),
+    }
+
+    def fns(mod, cfg, fast):
+        if fast:
+            return mod.make_block_fn_fast(cfg), mod.init_state_fast
+        return mod.make_block_fn(cfg), mod.init_state
+
+    def drawn(fast, n, blocks, d):
+        """The bits the port's PRNG drew for ``blocks`` blocks from
+        TX_SEED on ``d``."""
+        draw = (trand.random_bits_packed_block if fast
+                else trand.random_bits_block)
+        key, out = trand.source_init(TX_SEED, d), []
+        for _ in range(blocks):
+            b, key = draw(key, n)
+            out.append(b)
+        return torch.cat(out)
+
+    # ---- 18a. the card against the CPU, one block at each size
+    same = {}
+    for name, (mod, cfg, fast, n) in paths.items():
+        fn, init = fns(mod, cfg, fast)
+        out_d, st_d = fn(init(cfg, TX_SEED, dev))
+        out_c, st_c = fn(init(cfg, TX_SEED, "cpu"))
+        bits_eq = torch.equal(drawn(fast, n, 1, dev).cpu(),
+                              drawn(fast, n, 1, "cpu"))
+        keys_eq = torch.equal(st_d[0].cpu(), st_c[0])
+        if fast:
+            words_eq = (torch.equal(out_d.cpu(), out_c)
+                        and torch.equal(st_d[1].cpu(), st_c[1])
+                        and st_d[2:] == st_c[2:])
+            same[name] = {"bits": bits_eq, "key": keys_eq,
+                          "words_and_state": words_eq}
+            ok = bits_eq and keys_eq and words_eq
+        else:
+            mx, share = lsb_diff_card(out_d.cpu(), out_c)
+            same[name] = {"bits": bits_eq, "key": keys_eq,
+                          "max_lsb": mx, "share": share}
+            ok = bits_eq and keys_eq and mx <= 1 and share < TX_LSB_SHARE
+        if not ok:
+            fail(f"transmit {name}: the card differs from the CPU: "
+                 f"{same[name]}")
+    loop_bits_eq = torch.equal(drawn(True, TX_LOOP_BITS, 1, dev).cpu(),
+                               drawn(True, TX_LOOP_BITS, 1, "cpu"))
+    print("transmit, card vs CPU (one block each; fast paths bit for bit):",
+          json.dumps(same), f"loopback block's bits equal: {loop_bits_eq}")
+    if not loop_bits_eq:
+        fail("the loopback block's bits differ between the card and the CPU")
+
+    # ---- 18b. TX_CHAIN chained blocks against the float64 oracle
+    oracle = {}
+    for name, (mod, cfg, fast, n) in paths.items():
+        fn, init = fns(mod, cfg, fast)
+        st = init(cfg, TX_SEED, dev)
+        outs = []
+        for _ in range(TX_CHAIN):
+            out, st = fn(st)
+            outs.append(tx_pairs(out))
+        got = torch.cat(outs)
+        qpsk = mod is tq
+        want = tx_oracle_card(drawn(fast, n, TX_CHAIN, dev), qpsk,
+                              cfg.dphase if qpsk else 0.0,
+                              cfg.phase0 if qpsk else 0.0)
+        if got.shape != (TX_CHAIN * cfg.samples_per_block, 2):
+            fail(f"transmit {name}: shape {tuple(got.shape)}")
+        mx, share = lsb_diff_card(got, want)
+        oracle[name] = {"samples": got.shape[0], "max_lsb": mx,
+                        "share": share}
+        if mx > 1 or share >= TX_LSB_SHARE:
+            fail(f"transmit {name} vs the float64 oracle: {oracle[name]}")
+        del got, want, outs
+    print(f"transmit vs the float64 oracle ({TX_CHAIN} chained blocks; "
+          f"bound 1 LSB, share < {TX_LSB_SHARE}):", json.dumps(oracle))
+
+    # ---- 18c. loopback: QPSK fast tx at 2^24 bits -> the QPSK receiver
+    lcfg = tq.QpskTxConfig(bits_per_block=TX_LOOP_BITS, dphase=QPSK_CFO,
+                           phase0=QPSK_PHASE)
+    t0 = time.perf_counter()
+    packed, _ = tq.make_block_fn_fast(lcfg)(
+        tq.init_state_fast(lcfg, TX_SEED, dev))
+    pairs = tx_pairs(packed).to(torch.float32) / lcfg.scale
+    g = torch.Generator(device=dev)
+    g.manual_seed(TX_SEED)
+    noise = QPSK_NOISE * torch.randn(2, pairs.shape[0], generator=g,
+                                     device=dev)
+    re = (pairs[:, 0] + noise[0]).contiguous()
+    im = (pairs[:, 1] + noise[1]).contiguous()
+    del pairs, noise, packed
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    bits = drawn(True, TX_LOOP_BITS, 1, dev).cpu().numpy().astype(np.uint8)
+    if re.shape != (QPSK_N,):
+        fail(f"loopback: {re.shape[0]} samples, want {QPSK_N}")
+    rcfg = trx.QpskRxConfig()
+    hw = rcfg.panel_hw
+    qp = QS.qpsk_panels(re, im, hw)
+    width = qp[4]["width"]
+    p13 = torch.zeros((256, 256), device=dev)
+    p24 = torch.zeros((256, 256), device=dev)
+    p13[:128, :width], p13[128:, :width] = qp[0], qp[2]
+    p24[:128, :width], p24[128:, :width] = -qp[1], -qp[3]
+    plain_calls = [0]
+    kept = {}
+
+    def counting(mod, attr):
+        fn = getattr(mod, attr)
+        kept[(mod, attr)] = fn
+
+        def wrapped(*a, **kw):
+            plain_calls[0] += 1
+            return fn(*a, **kw)
+        setattr(mod, attr, wrapped)
+
+    for mod, attr in ((QS, "qpsk_symbol_plain"), (QS, "qpsk_panels_plain"),
+                      (FK, "fir_plain"), (PR, "panel_reductions_plain")):
+        counting(mod, attr)
+
+    def counts():
+        return {"qpsk_panels": QS.launches["qpsk_panels"],
+                "qpsk_symbol_gemm": QS.launches["qpsk_symbol_gemm"],
+                "qpsk_symbol_gemm_scalars":
+                    QS.launches["qpsk_symbol_gemm_scalars"],
+                "qpsk_symbols": QS.launches["qpsk_symbols"],
+                "fir_planar": FK.launches, "panel_reductions": PR.launches,
+                "plain": plain_calls[0]}
+
+    # counts start at 0 here: the fused receiver, the staged core and K11
+    # on the loopback's panels, as in the one-shot phase (9a)
+    FK.launches = PR.launches = 0
+    for k in QS.launches:
+        QS.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sym, diag = trx.make_rx_fn_planar(rcfg)(re, im)
+    torch.cuda.synchronize()
+    rx_s = time.perf_counter() - t0
+    fused_counts = counts()
+    sym_s, diag_s = trx._rx_core_staged(rcfg, re, im)
+    red = PR.panel_reductions(p13, p24, hw)
+    torch.cuda.synchronize()
+    loop_counts = counts()
+    for (mod, attr), fn in kept.items():
+        setattr(mod, attr, fn)
+    M = QPSK_N // 4
+    rot, lag0, head_errs = qpsk_align(sym, 0, bits)
+    lo, hi = lag0 + QPSK_MARGIN, M - QPSK_MARGIN
+    ber = qpsk_bit_errors(sym[:, lo:hi], lo, bits, rot, lag0)
+    rot_s, lag_s, head_s = qpsk_align(sym_s, 0, bits)
+    ber_s = qpsk_bit_errors(sym_s[:, lo:hi], lo, bits, rot_s, lag_s)
+    V = 2 * hw + 1
+    t_k11 = float(rcfg.timing.estimate_from_lag_sums(
+        red[0, :V], red[1, :V], weights=rcfg.wq2, lag_rot=diag["freq"]))
+    est = {k: float(v) for k, v in diag.items()}
+    print(f"transmit loopback on {card}: QPSK fast tx {TX_LOOP_BITS} bits "
+          f"-> {QPSK_N} samples (dphase {QPSK_CFO}, phase0 {QPSK_PHASE}, "
+          f"noise {QPSK_NOISE}) in {tx_s:.3f} s; one-shot receiver "
+          f"{rx_s:.3f} s: {json.dumps(est)}; lag {lag0} rot {rot}; "
+          f"{ber} bit errors (staged core {ber_s}) over {2 * (hi - lo)} "
+          f"bits; timing from the panel reductions {t_k11:.6f}")
+    print("transmit loopback launches: fused receiver alone",
+          json.dumps(fused_counts), "with the staged core and K11",
+          json.dumps(loop_counts))
+    if ber or ber_s or head_errs or head_s:
+        fail(f"loopback bit errors: one-shot {ber}, staged {ber_s}")
+    if abs(est["freq"] - QPSK_CFO) >= 0.01:
+        fail(f"loopback frequency estimate {est['freq']}")
+    if abs(t_k11 - est["timing"]) > 1e-4:
+        fail(f"loopback timing from the panel reductions {t_k11}")
+    if loop_counts != QPSK_ONE_SHOT_LAUNCHES:
+        fail(f"loopback launches {loop_counts}, expected "
+             f"{QPSK_ONE_SHOT_LAUNCHES}")
+    del re, im, sym, sym_s, qp
+
+    # ---- 18d. the fast paths served through StreamRunner, a profile each
+    placeholder = torch.zeros(1, device=dev)
+    for name in ("bpsk_fast", "qpsk_fast"):
+        mod, cfg, _, _ = paths[name]
+        fn = mod.make_block_fn_fast(cfg)
+        spb = cfg.samples_per_block
+
+        def serve(n, sink):
+            torch.cuda.synchronize()
+            runner = StreamRunner(
+                lambda st, _x: fn(st), mod.init_state_fast(cfg, TX_SEED, dev),
+                (placeholder for _ in range(n)), sink=sink,
+                samples_of=lambda _x: spb, depth=SERVE_DEPTH, device=dev)
+            return runner.run().msps
+
+        first = []
+        rates = {}
+        for sink_name, sink in (("no_sink", None),
+                                ("copying_sink",
+                                 lambda y: first.append(y) if not first
+                                 else None)):
+            serve(SERVE_WARMUP, sink)
+            first.clear()
+            rates[sink_name] = serve(SERVE_BLOCKS, sink)
+        st0 = mod.init_state_fast(cfg, TX_SEED, dev)
+        want0, _ = fn(st0)
+        if not np.array_equal(first[0], want0.cpu().numpy()):
+            fail(f"served {name}: the first block differs from the block "
+                 f"step's")
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(st0)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        dev_ms = cuda_ms(lambda: fn(st0))
+        floor = bound(4 * spb, 0)[0]
+        print(f"transmit {name} served on {card} ({SERVE_BLOCKS} blocks of "
+              f"{spb} samples, depth {SERVE_DEPTH}, after {SERVE_WARMUP} "
+              f"warm-up blocks; source a device placeholder): Msps "
+              f"{json.dumps(rates)}; host enqueue "
+              f"{float(np.median(enqueue)):.4f} ms a block (median of 5); "
+              f"device {dev_ms:.4f} ms a block; floor {floor:.4f} ms (the "
+              f"packed words written once)")
+        profile_served(lambda: fn(st0), card, f"one {name} transmit block")
+        profile_served(lambda: serve(SERVE_BLOCKS, None), card,
+                       f"{SERVE_BLOCKS} served {name} transmit blocks, "
+                       f"no sink")
+
+
 def main() -> None:
     import torch
 
@@ -2636,6 +2975,7 @@ def main() -> None:
     rows += qpsk_phases(dev, card)
     rows += spectrum_phases(dev, card)
     rows += sharded_phases(dev, card)
+    transmit_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

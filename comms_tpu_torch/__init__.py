@@ -8,12 +8,18 @@ one to.
 
 Layout
 ------
-``ops``       FIR filtering and FM demodulation on tensors.
+``ops``       DSP on tensors: FIR filtering, demodulation, spectra, and
+              the transmit chain (threefry sources, symbol maps, pulse
+              shaping, mixer, PRNs).
 ``kernels``   hand-written CUDA kernels (sources under ``csrc/``,
               built by nvcc at first use) with their plain PyTorch
               versions beside them.
-``models``    end-to-end pipelines: the FM broadcast receiver.
+``models``    end-to-end pipelines: the FM receiver, the band monitor,
+              the channelizer, the QPSK receiver, the BPSK and QPSK
+              transmitters.
+``parallel``  the sharded layer on an in-process mesh.
 ``runtime``   streaming executor and throughput metrics.
+``io``, ``util``  raw IQ files and SNR metrics (numpy).
 
 Importing the package builds nothing and loads no kernel library.
 """

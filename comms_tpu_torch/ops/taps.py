@@ -1,8 +1,9 @@
 """Filter tap generators (host-side, float64 numpy).
 
-Counterpart of the part of :mod:`comms_tpu.ops.taps` that the QPSK
-receiver needs: the root-raised-cosine matched filter (``rrc_taps``)
-and Mengali's q(t) taps of the NDA timing estimator (``qfilt_taps``).
+Counterpart of :mod:`comms_tpu.ops.taps`: rectangular, Gaussian,
+raised-cosine and root-raised-cosine pulses (``rect_taps``,
+``gaussian_taps``, ``sinc``, ``rc_taps``, ``rrc_taps``) and Mengali's
+q(t) taps of the NDA timing estimator (``qfilt_taps``).
 Taps are parameters, not streaming data: they are computed on the host
 in float64, exactly as the JAX package computes them, and cast by the op
 that consumes them, so both packages hold bit-equal arrays.
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["InvalidRolloffError", "rrc_taps", "qfilt_taps"]
+__all__ = ["InvalidRolloffError", "rect_taps", "gaussian_taps", "sinc",
+           "rc_taps", "rrc_taps", "qfilt_taps"]
 
 # Singularity checks of the tap formulas: parameters that should land on
 # a singular point but miss it by a few ulps still take the finite limit.
@@ -27,6 +29,47 @@ def _sym_times(n_taps: int, sam_per_sym: float) -> np.ndarray:
     """Symmetric time grid t_i = (i - (n-1)/2) / fs."""
     i = np.arange(n_taps, dtype=np.float64)
     return (i - (n_taps - 1) / 2.0) / float(sam_per_sym)
+
+
+def rect_taps(n_taps: int, dtype=np.complex128) -> np.ndarray:
+    """Rectangular pulse-shaping taps: ``n_taps`` ones."""
+    return np.ones(n_taps, dtype=dtype)
+
+
+def gaussian_taps(n_taps: int, sam_per_sym: float, alpha: float,
+                  dtype=np.complex128) -> np.ndarray:
+    """Gaussian impulse response: sqrt(a/pi) * exp(-a t^2) on the
+    symmetric grid."""
+    t = _sym_times(n_taps, sam_per_sym)
+    taps = np.sqrt(alpha / np.pi) * np.exp(-alpha * t ** 2)
+    return taps.astype(dtype)
+
+
+def sinc(x):
+    """Normalized sinc: sin(pi x)/(pi x), sinc(0) = 1."""
+    return np.sinc(x)
+
+
+def rc_taps(n_taps: int, sam_per_sym: float, beta: float,
+            dtype=np.complex128) -> np.ndarray:
+    """Raised-cosine taps with Tsym = 1.
+
+    h(t) = sinc(t) * cos(pi b t) / (1 - (2 b t)^2), with the
+    L'Hopital limit (pi/4) * sinc(1/(2b)) at |t| = 1/(2b).
+    """
+    if beta < 0.0 or beta > 1.0:
+        raise InvalidRolloffError(f"beta={beta} not in [0, 1]")
+    t = _sym_times(n_taps, sam_per_sym)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        vals = (np.sinc(t) * np.cos(np.pi * beta * t)
+                / (1.0 - (2.0 * beta * t) ** 2))
+    if beta != 0.0:
+        t_sing = 1.0 / (2.0 * beta)
+        limit = (np.pi / 4.0) * np.sinc(1.0 / (2.0 * beta))
+        singular = np.isclose(np.abs(t), t_sing, rtol=0.0,
+                              atol=_SINGULARITY_ATOL)
+        vals = np.where(singular, limit, vals)
+    return vals.astype(dtype)
 
 
 def rrc_taps(n_taps: int, sam_per_sym: float, beta: float,

@@ -13,14 +13,19 @@ from comms_tpu_torch.kernels import band_monitor as TBM
 from comms_tpu_torch.kernels import decim_fir as TDF
 from comms_tpu_torch.kernels import fir as TFIR
 from comms_tpu_torch.kernels import fm_chain as TK
+from comms_tpu_torch.models import bpsk_tx as tbt
 from comms_tpu_torch.models import channelizer as tchm
 from comms_tpu_torch.models import fm_band_monitor as tbm
 from comms_tpu_torch.models import fm_receiver as tfm
 from comms_tpu_torch.models import qpsk_rx as trx
+from comms_tpu_torch.models import qpsk_tx as tqt
 from comms_tpu_torch.models import qpsk_rx_stream as tstream
 from comms_tpu_torch.ops import channelizer as tchan
 from comms_tpu_torch.ops import demodulation as tdem
 from comms_tpu_torch.ops import fir as tfir
+from comms_tpu_torch.ops import prns as tprns
+from comms_tpu_torch.ops import pulse as tpulse
+from comms_tpu_torch.ops import random as trand
 from comms_tpu_torch.parallel import dryrun as tdry
 from comms_tpu_torch.parallel import scaling as tscal
 from comms_tpu_torch.parallel import sharding as tsh
@@ -32,12 +37,20 @@ _FM = tfm.FmReceiverConfig(block=2000)
 _BM = tbm.BandMonitorConfig(num_channels=8, block=TBM.step_samples())
 _CH = tchm.ChannelizerConfig(num_channels=8, block=4096)
 _WB = twb.WidebandConfig(tfm.FM_LPF_TAPS, block=8 * 400)
+_BT = tbt.BpskTxConfig(syms_per_block=64)
+_QT = tqt.QpskTxConfig(bits_per_block=128, dphase=0.1)
+_PRN = tprns.PrnSpec.make(0xC0, 8, 16)
 
 
 def _run_file(tmp_path):
     p = tmp_path / "cap.iq"
     np.zeros((2 * _FM.block, 2), np.uint8).tofile(p)
     return tfm.run_file(p, _FM)
+
+
+def _tx_file(mod, cfg, fast):
+    return lambda tmp_path: mod.run_to_file(tmp_path / "tx.iq", 1, cfg,
+                                            fast=fast)
 
 
 def _stream_runner(tmp_path):
@@ -106,6 +119,39 @@ ENTRY_POINTS = {
         tscal.weak_scaling,
         lambda _: tscal.weak_scaling(tfm.FM_LPF_TAPS, per_shard=400,
                                      shard_counts=(1,), iters=1, reps=1)),
+    "ops.random.source_init": (trand.source_init,
+                               lambda _: trand.source_init(7)),
+    "ops.random.PRNGKey": (trand.PRNGKey, lambda _: trand.PRNGKey(7)),
+    "ops.random.key_from_words": (trand.key_from_words,
+                                  lambda _: trand.key_from_words([0, 7])),
+    "ops.pulse.pulse_init_ctx": (tpulse.pulse_init_ctx,
+                                 lambda _: tpulse.pulse_init_ctx(32, 4)),
+    "ops.prns.PrnSpec.init_state": (tprns.PrnSpec.init_state,
+                                    lambda _: _PRN.init_state(1)),
+    "bpsk_tx.init_state": (tbt.init_state, lambda _: tbt.init_state(_BT)),
+    "bpsk_tx.init_state_fast": (tbt.init_state_fast,
+                                lambda _: tbt.init_state_fast(_BT)),
+    "bpsk_tx.state_from_jax": (
+        tbt.state_from_jax,
+        lambda _: tbt.state_from_jax((np.zeros(2), np.zeros((7, 2))))),
+    "bpsk_tx.fast_state_from_jax": (
+        tbt.fast_state_from_jax,
+        lambda _: tbt.fast_state_from_jax((np.zeros(2), np.zeros(7)))),
+    "bpsk_tx.run_to_file": (tbt.run_to_file, _tx_file(tbt, _BT, False)),
+    "bpsk_tx.run_to_file_fast": (tbt.run_to_file, _tx_file(tbt, _BT, True)),
+    "qpsk_tx.init_state": (tqt.init_state, lambda _: tqt.init_state(_QT)),
+    "qpsk_tx.init_state_fast": (tqt.init_state_fast,
+                                lambda _: tqt.init_state_fast(_QT)),
+    "qpsk_tx.state_from_jax": (
+        tqt.state_from_jax,
+        lambda _: tqt.state_from_jax((np.zeros(2), np.zeros((7, 2)),
+                                      (0, 0)))),
+    "qpsk_tx.fast_state_from_jax": (
+        tqt.fast_state_from_jax,
+        lambda _: tqt.fast_state_from_jax((np.zeros(2), np.zeros(14),
+                                           (0, 0)))),
+    "qpsk_tx.run_to_file": (tqt.run_to_file, _tx_file(tqt, _QT, False)),
+    "qpsk_tx.run_to_file_fast": (tqt.run_to_file, _tx_file(tqt, _QT, True)),
     "parallel.dryrun.dryrun_multichip": (
         tdry.dryrun_multichip, lambda _: tdry.dryrun_multichip(2)),
 }

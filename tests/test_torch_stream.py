@@ -132,7 +132,10 @@ def test_package_imports_no_jax():
     imported = set(res.stdout.split())
     for name in ("ops.fir", "ops.demodulation", "ops.channelizer",
                  "ops.taps", "ops.mixer", "ops.interp", "ops.fft",
-                 "ops.spectrum",
+                 "ops.spectrum", "ops.random", "ops.modulation",
+                 "ops.pulse", "ops.prns", "ops.txshape",
+                 "models.bpsk_tx", "models.qpsk_tx", "io.raw_iq",
+                 "util.snr",
                  "kernels._build", "kernels.fm_chain", "kernels.channelizer",
                  "kernels.decim_fir", "kernels.band_monitor", "kernels.fir",
                  "kernels.qpsk_sym", "kernels.panel_reduce", "kernels.fft",
