@@ -139,7 +139,22 @@ Phases (each raises on failure, so any failure exits non-zero):
    counts; each fast path served through ``StreamRunner`` with no sink
    and with a copying sink (Msps), the host's enqueue ms, the device ms
    a block, and ``torch.profiler`` splits of one block and of 8 served
-   blocks (device operations, busy share).
+   blocks (device operations, busy share);
+19. the composable runtime (``comms_tpu_torch/runtime``; the counts of
+   K2, K4 and K12 start at 0 before each path and are read after it):
+   the FM receiver's ``make_pipeline`` at 26,214,400 samples, 3 blocks
+   chained (K2 twice a block, against ``make_block_fn`` and the tones),
+   served through ``StreamRunner`` (Msps, busy share); the ``Fir`` op at
+   33,554,432 complex64 samples with 32 real taps (K4's entry) and a
+   ``FirDecimate`` op at 16,777,216, dec 4, 32 taps (K2), each against
+   the GEMM op on the same input; the BPSK and QPSK ``make_pipeline`` at
+   16,777,216 samples a block, 3 blocks bit-equal to ``make_block_fn``;
+   the FM pipeline's ``make_sharded_step`` over 8 shards against the
+   unsharded pipeline (K12 once per op with a halo); dry-run config 3;
+   the ``Graph`` feedback doubler; a checkpoint saved mid-stream and
+   resumed bit for bit; ``BatchedStreamRunner`` over 3 FM streams against
+   separate runs; kernel rows for K2 at the pipeline's two stages, K4 and
+   K2 under the ops, and K12 at the pipeline's halos.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
@@ -279,6 +294,18 @@ TX_CHAIN = 3
 TX_LOOP_BITS = 1 << 24
 TX_SEED = 7
 TX_LSB_SHARE = 0.01
+
+# Phase 19, the composable runtime (comms_tpu_torch/runtime): the FM
+# pipeline at BLOCK, its FIR ops on K2's kernel; the Fir op (K4's entry
+# at D = 1) and a FirDecimate op against the GEMM route; the transmit
+# pipelines at 16,777,216 samples a block; the sharded FM pipeline; the
+# batched runner over 3 FM streams.
+RT_FIR_N = 33_554_432
+RT_DEC_N = 16_777_216
+RT_DEC = 4
+RT_TAPS = 32
+RT_STREAMS = 3
+TOL_RT_FM = 2e-4        # the FM chain vs its tensor path (the CPU tests')
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at its 700 W
 # limit): a kernel's bound is the largest of its bytes over the memory
@@ -2578,10 +2605,11 @@ def sharded_phases(dev, card: str) -> list:
     counts["dryrun"] = HR.launches
     print(f"dryrun_multichip({SH_SHARDS}) on {card}: OK in "
           f"{time.perf_counter() - t0:.1f} s, {HR.launches} K12 launches")
-    # configs 1 (4 rings x 3 steps), 2 (2), 4 (1), 5 (2), 6 (2), 7 (1) and
-    # 9 (3 rings x 2 steps on the 2 x 4 mesh)
-    if HR.launches != 12 + 2 + 1 + 2 + 2 + 1 + 6:
-        fail(f"dry run: {HR.launches} K12 launches, expected 26")
+    # configs 1 (4 rings x 3 steps), 2 (2), 3 (the pulse shaper's halo,
+    # 2 steps), 4 (1), 5 (2), 6 (2), 7 (1) and 9 (3 rings x 2 steps on the
+    # 2 x 4 mesh)
+    if HR.launches != 12 + 2 + 2 + 1 + 2 + 2 + 1 + 6:
+        fail(f"dry run: {HR.launches} K12 launches, expected 28")
     print("K12 launches per sharded main path:", json.dumps(counts))
 
     times = {}
@@ -2926,6 +2954,326 @@ def transmit_phases(dev, card: str) -> None:
                        f"no sink")
 
 
+def runtime_phases(dev, card: str) -> list:
+    """Phase 19: the composable runtime on the card; its kernel rows."""
+    import torch
+
+    from comms_tpu_torch.kernels import decim_fir as DF
+    from comms_tpu_torch.kernels import fir as FP
+    from comms_tpu_torch.kernels import halo_ring as HR
+    from comms_tpu_torch.models import bpsk_tx as tb
+    from comms_tpu_torch.models import fm_receiver as fm
+    from comms_tpu_torch.models import qpsk_tx as tq
+    from comms_tpu_torch.ops import fir as tfir
+    from comms_tpu_torch.parallel import dryrun
+    from comms_tpu_torch.parallel import sharding as sh
+    from comms_tpu_torch.runtime import (BatchedStreamRunner, Fir,
+                                         FirDecimate, Graph, StreamRunner)
+    from comms_tpu_torch.runtime import checkpoint as ck
+
+    def zero_counts():
+        DF.launches = FP.launches = HR.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"K2": DF.launches, "K4": FP.launches, "K12": HR.launches}
+
+    # ---- 19a. the FM pipeline: 3 blocks chained, against make_block_fn
+    cfg = fm.FmReceiverConfig(block=BLOCK)
+    pipe, blk = fm.make_pipeline(cfg), fm.make_block_fn(cfg)
+    iq, w = synth_capture(3 * BLOCK, seed=0)
+    x = torch.from_numpy(iq).to(dev)
+    blocks = [x[b * BLOCK:(b + 1) * BLOCK] for b in range(3)]
+    # each stage's K2 launches, read around its op's apply
+    stages = [op for op in pipe.ops if isinstance(op, FirDecimate)]
+    stage_launches = [0] * len(stages)
+
+    def counted(k, apply):
+        def run(state, xb):
+            before = DF.launches
+            out = apply(state, xb)
+            stage_launches[k] += DF.launches - before
+            return out
+        return run
+
+    for k, op in enumerate(stages):
+        object.__setattr__(op, "apply", counted(k, op.apply))
+    zero_counts()
+    s = pipe.init_state(dev)
+    outs = []
+    for xb in blocks:
+        y, s = pipe.step(s, xb)
+        outs.append(y)
+    fm_counts = counts()
+    for op in stages:
+        object.__delattr__(op, "apply")
+    sb, err = fm.init_state(cfg, dev), 0.0
+    for xb, y in zip(blocks, outs):
+        a, sb = blk(sb, xb)
+        err = max(err, max_err(y, a))
+    audio = torch.cat(outs).cpu().numpy()
+    corr = demod_matches_tones(audio, w)
+    print(f"FM make_pipeline at {BLOCK}, 3 blocks on {card}: vs "
+          f"make_block_fn {err:.3g} (bound {TOL_RT_FM}); tone correlation "
+          f"{corr:.5f}; launches {json.dumps(fm_counts)}, K2 by stage "
+          f"{stage_launches}")
+    if err > TOL_RT_FM or not np.isfinite(audio).all():
+        fail(f"FM pipeline vs make_block_fn {err}")
+    if corr < 0.99:
+        fail(f"FM pipeline audio does not follow the tones: {corr}")
+    if fm_counts != {"K2": 6, "K4": 0, "K12": 0} or stage_launches != [3, 3]:
+        fail(f"FM pipeline launches {fm_counts}, by stage {stage_launches}: "
+             f"expected K2 once a stage and block")
+
+    def serve(n, sink=None):
+        torch.cuda.synchronize()
+        runner = StreamRunner(pipe.step, pipe.init_state(dev),
+                              (blocks[i % 3] for i in range(n)), sink=sink,
+                              depth=SERVE_DEPTH, device=dev)
+        return runner.run().msps
+
+    # no sink, and the FM phase's copying sink (its fused step's rate
+    # is measured with one)
+    rates, kept = {}, []
+    for name, sink in (("no_sink", None), ("copying_sink", kept.append)):
+        serve(SERVE_WARMUP, sink)
+        kept.clear()
+        zero_counts()
+        rates[name] = serve(SERVE_BLOCKS, sink)
+        served = counts()
+        if served["K2"] != 2 * SERVE_BLOCKS:
+            fail(f"served FM pipeline launched K2 {served['K2']} times")
+    print(f"FM make_pipeline served on {card} ({SERVE_BLOCKS} blocks of "
+          f"{BLOCK}, depth {SERVE_DEPTH}, after {SERVE_WARMUP} warm-up "
+          f"blocks, device-resident): Msps {json.dumps(rates)}; launches "
+          f"{json.dumps(served)}")
+    head = np.concatenate(kept[:3])
+    if not np.array_equal(head, audio[:head.shape[0]]):
+        fail("served FM pipeline blocks differ from the stepped blocks")
+    profile_served(lambda: serve(SERVE_BLOCKS), card,
+                   f"{SERVE_BLOCKS} served FM make_pipeline blocks")
+
+    # ---- 19b. checkpoint mid-stream on the card, resumed bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        s1 = pipe.step(pipe.init_state(dev), blocks[0])[1]
+        ck.save_state(Path(tmp) / "fm", s1, meta={"blocks_done": 1})
+        y_cont, _ = pipe.step(s1, blocks[1])
+        y_res, _ = pipe.step(ck.load_state(Path(tmp) / "fm",
+                                           pipe.init_state(dev)), blocks[1])
+    if not torch.equal(y_cont, y_res):
+        fail("FM pipeline resumed from a checkpoint differs")
+    print("checkpoint of the FM pipeline mid-stream: resumed bit for bit")
+
+    # ---- 19c. BatchedStreamRunner: 3 FM streams against separate runs
+    srcs = [[blocks[(b + k) % 3] for k in range(2)]
+            for b in range(RT_STREAMS)]
+    want = []
+    for src in srcs:
+        st, got = pipe.init_state(dev), []
+        for xb in src:
+            y, st = pipe.step(st, xb)
+            got.append(y)
+        want.append(torch.stack(got))
+    got = [[] for _ in range(RT_STREAMS)]
+    batched = [torch.stack([srcs[b][k] for b in range(RT_STREAMS)])
+               for k in range(2)]
+    t0 = time.perf_counter()
+    meter = BatchedStreamRunner(
+        pipe.step, [pipe.init_state(dev) for _ in range(RT_STREAMS)],
+        batched_source=batched, sinks=[g.append for g in got],
+        depth=SERVE_DEPTH, device=dev).run()
+    for b in range(RT_STREAMS):
+        if not np.array_equal(np.stack(got[b]), want[b].cpu().numpy()):
+            fail(f"batched FM stream {b} differs from its separate run")
+    print(f"BatchedStreamRunner, {RT_STREAMS} FM streams x 2 blocks of "
+          f"{BLOCK}: equal to separate runs bit for bit "
+          f"({meter.msps:.1f} Msps with a copying sink, "
+          f"{time.perf_counter() - t0:.2f} s)")
+    del srcs, want, got, batched
+
+    # ---- 19d. the sharded FM pipeline against the unsharded one
+    mesh = sh.time_mesh(SH_SHARDS, device=dev)
+    sstep = pipe.make_sharded_step(mesh, block=BLOCK)
+    s_ref, s_sh = pipe.init_state(dev), pipe.init_state(dev)
+    zero_counts()
+    for xb in blocks[:2]:
+        y_sh, s_sh = sstep(s_sh, xb)
+        y_ref, s_ref = pipe.step(s_ref, xb)
+        if not torch.equal(y_sh, y_ref):
+            fail(f"sharded FM pipeline differs: {max_err(y_sh, y_ref)}")
+    sh_counts = counts()
+    print(f"sharded FM pipeline, {SH_SHARDS} shards x {BLOCK // SH_SHARDS}"
+          f", 2 blocks: equal to the unsharded pipeline bit for bit; "
+          f"launches (with the unsharded steps' K2) {json.dumps(sh_counts)}")
+    if sh_counts != {"K2": 2 * (2 * SH_SHARDS + 2), "K4": 0, "K12": 2 * 3}:
+        fail(f"sharded FM pipeline launches {sh_counts}")
+    k12_sharded = sh_counts["K12"]
+    dryrun._dryrun_pipeline(SH_SHARDS, mesh, dev)
+    g = Graph()
+    g.add_node("double", lambda prev: prev * 2, ["double"],
+               feedback_from={"double": torch.ones(1, device=dev)})
+    g.set_outputs(["double"])
+    gstep, gs = g.compile(), g.init_state(device=dev)
+    seen = []
+    for _ in range(10):
+        (out,), gs = gstep(gs, {})
+        seen.append(float(out[0]))
+    if seen != [2.0 ** k for k in range(1, 11)]:
+        fail(f"Graph feedback doubler: {seen}")
+    print(f"dry-run config 3 on {SH_SHARDS} shards: OK; Graph feedback "
+          f"doubler: {seen[-1]} after 10 steps")
+
+    # ---- 19e. the transmit pipelines, bit-equal to make_block_fn
+    for name, mod, tcfg in (
+            ("bpsk", tb, tb.BpskTxConfig(syms_per_block=TX_BPSK_SYMS)),
+            ("qpsk", tq, tq.QpskTxConfig(bits_per_block=TX_QPSK_BITS,
+                                         dphase=TX_DPHASE,
+                                         phase0=TX_PHASE0))):
+        tp, tblk = mod.make_pipeline(tcfg, seed=TX_SEED), mod.make_block_fn(
+            tcfg)
+        sp, st = tp.init_state(dev), mod.init_state(tcfg, TX_SEED, dev)
+        for b in range(TX_CHAIN):
+            yp, sp = tp.step(sp)
+            yb, st = tblk(st)
+            if not torch.equal(yp, yb):
+                fail(f"{name} make_pipeline block {b} differs from "
+                     f"make_block_fn")
+        print(f"{name} make_pipeline: {TX_CHAIN} blocks of "
+              f"{tcfg.samples_per_block} samples bit-equal to "
+              f"make_block_fn on the card")
+
+    # ---- 19f. the FIR ops on the kernels against the GEMM op
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    taps = np.hamming(RT_TAPS).astype(np.float32)
+    taps /= taps.sum()
+    ops = {}
+    for name, op, n, dec, mod in (
+            ("fir_op", Fir.make(taps), RT_FIR_N, 1, FP),
+            ("fir_decimate_op", FirDecimate.make(taps, RT_DEC), RT_DEC_N,
+             RT_DEC, DF)):
+        xr = torch.randn(2, n, generator=gen, device=dev)
+        xc = torch.complex(xr[0], xr[1])
+        ctx = torch.complex(*torch.randn(2, op.halo, generator=gen,
+                                         device=dev))
+        zero_counts()
+        y, s_new = op.apply(ctx, xc)
+        c = counts()
+        if dec > 1:
+            ref, s_ref = tfir.fir_decimate_poly(
+                xc, tfir.decimating_branch_taps(taps, dec), ctx)
+        else:
+            ref, s_ref = tfir.fir_block(xc, taps, ctx)
+        e = rel_err(y, ref)
+        print(f"{name} ({n} complex64 samples, {RT_TAPS} real taps, dec "
+              f"{dec}): kernel route vs the GEMM op {e:.3g}; launches "
+              f"{json.dumps(c)}")
+        if e > TOL_FIR or not torch.equal(s_new, s_ref):
+            fail(f"{name} disagrees with the GEMM op: {e}")
+        if c[{1: "K4"}.get(dec, "K2")] != 1:
+            fail(f"{name} launches {c}")
+        ops[name] = (xr, ctx, c)
+
+    # ---- 19g. kernel rows: K2 at the FM pipeline's two stages, K4 and K2
+    # under the ops, K12 at the pipeline's halos
+    rows = []
+    D, T = cfg.dec1, len(fm.FM_LPF_TAPS)
+    h = fm.FM_LPF_TAPS.astype(np.float32)
+    W = D * 128
+    MD = D * -(-T // D)
+    xf = (x[:BLOCK].to(torch.float32) - 127.5) / 127.5
+    p1 = (xf[:, 0].contiguous(), xf[:, 1].contiguous())
+    mid = torch.randn(2, BLOCK // D, generator=gen, device=dev)
+    p2 = (mid[0].contiguous(), torch.zeros_like(mid[0]))
+    # stage 1: complex planes, 8 bytes a sample each way and 2T FMAs an
+    # output; stage 2 a real stream through real taps: 4 bytes and T
+    # FMAs (the kernel's zero imaginary plane is not the function's work)
+    for k, (name, (pr, pi), n, width, fmas) in enumerate((
+            ("fir_decimate_fm_stage1", p1, BLOCK, 8, 2),
+            ("fir_decimate_fm_stage2", p2, BLOCK // D, 4, 1))):
+        cr = torch.randn(1, W, generator=gen, device=dev)
+        ci = (torch.randn(1, W, generator=gen, device=dev)
+              if name.endswith("1") else torch.zeros(1, W, device=dev))
+        yk = DF.fir_decimate_planar(pr, pi, h, D, cr, ci, tile_rows=8)
+        yp = DF.fir_decimate_plain(pr, pi, h, D, cr, ci)
+        e = rel_err(torch.stack(yk[:2]), torch.stack(yp))
+        if e > TOL_FIR:
+            fail(f"{name}: kernel vs plain {e}")
+        ms = cuda_ms(lambda: DF.fir_decimate_planar(pr, pi, h, D, cr, ci,
+                                                    tile_rows=8))
+        plain_ms = cuda_ms(lambda: DF.fir_decimate_plain(pr, pi, h, D, cr,
+                                                         ci))
+        lib = conv1d_ms(torch.stack([torch.cat([cr[0, W - T + 1:], pr]),
+                                     torch.cat([ci[0, W - T + 1:], pi])]),
+                        h, D, want=torch.stack(yk[:2]))
+        print(f"{name} on {card} (N {n}, dec {D}, {T} taps): kernel vs "
+              f"plain {e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.conv1d {lib:.4f} ms")
+        rows.append(kernel_row(name, "decim_fir.cu",
+                               "comms_tpu/kernels/decim_fir_pallas.py:262",
+                               stage_launches[k], e, ms, plain_ms,
+                               width * (n + n // D), 2 * fmas * T * n // D,
+                               lib))
+    for name, f, rep, dec in (("fir_op", "decim_fir.cu",
+                               "comms_tpu/kernels/fir_pallas.py:253", 1),
+                              ("fir_decimate_op", "decim_fir.cu",
+                               "comms_tpu/kernels/decim_fir_pallas.py:262",
+                               RT_DEC)):
+        xr, ctx, c = ops[name]
+        n = xr.shape[1]
+        W = FP.MAX_TAPS - 1 if dec == 1 else dec * 128
+        xc = torch.complex(xr[0], xr[1])
+        pr, pi, cr, ci = DF._block_planes(xc, ctx, W)
+        if dec == 1:
+            run = (lambda: FP.fir_planar(pr, pi, taps, cr, ci, tile_rows=8))
+            plain = (lambda: FP.fir_plain(pr, pi, taps, cr, ci))
+            launches = c["K4"]
+        else:
+            run = (lambda: DF.fir_decimate_planar(pr, pi, taps, dec, cr, ci,
+                                                  tile_rows=8))
+            plain = (lambda: DF.fir_decimate_plain(pr, pi, taps, dec, cr,
+                                                   ci))
+            launches = c["K2"]
+        ctx_l = (cr[W - RT_TAPS + 1:], ci[W - RT_TAPS + 1:])
+        yk, yp = run(), plain()
+        e = rel_err(torch.stack(yk[:2]), torch.stack(yp))
+        if e > TOL_FIR:
+            fail(f"{name}: kernel vs plain {e}")
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        lib = conv1d_ms(torch.stack([torch.cat([ctx_l[0], pr]),
+                                     torch.cat([ctx_l[1], pi])]),
+                        taps, dec, want=torch.stack(yk[:2]))
+        print(f"{name} on {card} (N {n}, dec {dec}, {RT_TAPS} taps): kernel "
+              f"vs plain {e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, F.conv1d {lib:.4f} ms")
+        rows.append(kernel_row(name, f, rep, launches, e, ms, plain_ms,
+                               8 * n + 8 * n // dec,
+                               4 * RT_TAPS * n // dec, lib))
+    # K12 at the sharded pipeline's first halo: 8 complex64 tails of MD-1
+    xs = sh.shard(torch.complex(p1[0], p1[1]), mesh, ("time",))
+    rings = [xs]
+    halo = MD - 1
+    ctx0 = [torch.zeros(halo, dtype=torch.complex64, device=dev)]
+    got = HR.exchange(rings, halo, ctx0)
+    ref = HR.exchange_plain(rings, halo, ctx0)
+    if not all(torch.equal(a, b) for a, b in zip(got[0], ref[0])):
+        fail("K12 at the pipeline's halos differs from its plain version")
+    srcs = [ctx0[0]] + [t[-halo:] for t in xs[:-1]]
+    dsts = [torch.empty_like(t) for t in srcs]
+    ms = cuda_ms(lambda: HR.exchange(rings, halo, ctx0))
+    plain_ms = cuda_ms(lambda: HR.exchange_plain(rings, halo, ctx0))
+    lib = (cuda_ms(lambda: torch._foreach_copy_(dsts, srcs))
+           if hasattr(torch, "_foreach_copy_") else None)
+    nbytes = 2 * SH_SHARDS * halo * 8
+    print(f"K12 at the FM pipeline's first halo on {card} ({SH_SHARDS} "
+          f"tails of {halo} complex64): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib} ms")
+    rows.append(kernel_row("ring_halo_exchange_pipeline", "halo_ring.cu",
+                           "comms_tpu/kernels/halo_rdma.py:84", k12_sharded,
+                           0.0, ms, plain_ms, nbytes, 0, lib))
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -2976,6 +3324,7 @@ def main() -> None:
     rows += spectrum_phases(dev, card)
     rows += sharded_phases(dev, card)
     transmit_phases(dev, card)
+    rows += runtime_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,9 +44,10 @@ import torch
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.ops import fir as _fir
 
-__all__ = ["fir_decimate_planar", "decim_ctx_zero", "max_taps",
-           "poly_fir_planar", "poly_fir", "step_samples", "CTX_ROWS",
-           "fir_decimate_plain", "partition", "outputs_per_thread"]
+__all__ = ["fir_decimate_planar", "fir_decimate_block", "decim_ctx_zero",
+           "max_taps", "poly_fir_planar", "poly_fir", "step_samples",
+           "CTX_ROWS", "fir_decimate_plain", "partition",
+           "outputs_per_thread"]
 
 _LANES = 128
 _POLY_ROWS = 64          # the K3 entry's block quantum, in rows of D*128
@@ -251,6 +252,51 @@ def fir_decimate_planar(xr, xi, taps, dec: int, ctx_r, ctx_i,
     yr, yi, nr, ni = _run(xr, xi, taps, D, ctx_r, ctx_i)
     ctx_shape = (1, W) if xr.ndim == 1 else (xr.shape[0], W)
     return yr, yi, nr.reshape(ctx_shape), ni.reshape(ctx_shape)
+
+
+def _block_planes(x, ctx, width: int):
+    """Float32 planes of a block ``x`` [N] (complex64, or float32 beside
+    a zero imaginary plane) and flat context planes of ``width``
+    samples: the carried ``ctx`` at their end, zeros in front."""
+    L = ctx.shape[0]
+    if L > width:
+        raise ValueError(f"a context of {L} samples does not fit the "
+                         f"kernel's {width}")
+    ctx = ctx.to(x.dtype)
+    if x.is_complex():
+        planes = (x.real, x.imag, ctx.real, ctx.imag)
+    else:
+        planes = (x, torch.zeros_like(x), ctx, torch.zeros_like(ctx))
+    xr, xi, cr, ci = (p.contiguous() for p in planes)
+    pad = torch.nn.functional.pad
+    return xr, xi, pad(cr, (width - L, 0)), pad(ci, (width - L, 0))
+
+
+def _block_result(x, taps, yr, yi, nr, ni, L: int):
+    """``(y, tail)`` from a kernel's planes: ``y`` complex unless the
+    stream and the taps are real, ``tail`` the last ``L`` samples of the
+    next context in the stream's dtype."""
+    y = (torch.complex(yr, yi)
+         if x.is_complex() or np.iscomplexobj(taps) else yr)
+    nr, ni = nr.reshape(-1), ni.reshape(-1)
+    W = nr.shape[0]
+    if x.is_complex():
+        return y, torch.complex(nr[W - L:], ni[W - L:])
+    return y, nr[W - L:].clone()
+
+
+def fir_decimate_block(x, taps, dec: int, ctx, tile_rows: int = 8):
+    """:func:`fir_decimate_planar` on a block: ``x`` [N] complex64 or
+    float32 (N a multiple of ``tile_rows*dec*128``), host ``taps``
+    (T <= :func:`max_taps`), ``ctx`` the carried MD-1 input samples
+    (``ops.fir.fir_decimate_poly``'s state).  Returns ``(y[N // dec],
+    new_ctx)``, ``y`` complex unless the stream and the taps are real,
+    ``new_ctx`` the block's last MD-1 samples."""
+    W = int(dec) * _LANES
+    xr, xi, cr, ci = _block_planes(x, ctx, W)
+    yr, yi, nr, ni = fir_decimate_planar(xr, xi, taps, dec, cr, ci,
+                                         tile_rows=tile_rows)
+    return _block_result(x, taps, yr, yi, nr, ni, ctx.shape[0])
 
 
 def poly_fir_planar(re, im, taps, ctx_re, ctx_im, dec: int):

@@ -8,7 +8,7 @@ replaces the TPU kernel ``comms_tpu/kernels/fir_pallas.py::
 fir_planar_pallas`` and keeps its contract: T <= :data:`MAX_TAPS`, a
 context of ``[8, 128]`` planes (the 1024 samples before the block, of
 which the last T-1 count; the kernel reads them as one row of 1024), N
-a multiple of ``tile_rows * 128``.  :func:`fir_block` is the complex
+a multiple of ``tile_rows * 128``.  :func:`fir_block` is the block
 drop-in for ``ops.fir.fir_block`` (``fir_block_pallas``).
 
 On the H100 the kernel moves 16 bytes per complex sample and does 2T
@@ -150,9 +150,12 @@ def _auto_tile_rows(N: int) -> int:
 
 def fir_block(x, taps, ctx, tile_rows: int | None = None,
               mode: str = "split"):
-    """Drop-in for ``ops.fir.fir_block``: complex ``x`` [N], host taps
-    (T <= 1025), carried complex ``ctx`` [T-1].  Returns ``(y[N],
-    new_ctx)``.  Pads the block to the tile and drops the pad."""
+    """Drop-in for ``ops.fir.fir_block``: ``x`` [N] complex64, or
+    float32 (its imaginary plane zero), host taps (T <= 1025), carried
+    ``ctx`` [T-1] of the stream's dtype.  Returns ``(y[N], new_ctx)``,
+    ``y`` complex unless the stream and the taps are real.  Pads the
+    block to the tile and drops the pad; where there is none, the new
+    context is the tail of the kernel's next one."""
     taps = np.asarray(taps)
     T = taps.shape[0]
     if T > MAX_TAPS:
@@ -162,18 +165,16 @@ def fir_block(x, taps, ctx, tile_rows: int | None = None,
     tr = _auto_tile_rows(N) if tile_rows is None else tile_rows
     tile = tr * _LANES
     Np = -(-N // tile) * tile
-    pad = torch.nn.functional.pad
-    xr = pad(x.real.contiguous(), (0, Np - N))
-    xi = pad(x.imag.contiguous(), (0, Np - N))
-    cpad = x.new_zeros(_CTX)
-    if T > 1:
-        cpad[-(T - 1):] = ctx.to(x.dtype)
-    cr = cpad.real.contiguous().reshape(_HALO_ROWS, _LANES)
-    ci = cpad.imag.contiguous().reshape(_HALO_ROWS, _LANES)
-    yr, yi, _, _ = fir_planar(xr, xi, taps, cr, ci, tile_rows=tr, mode=mode)
-    y = torch.complex(yr[:N], yi[:N])
-    new_ctx = torch.cat([ctx.to(x.dtype), x])[-(T - 1):] if T > 1 else ctx
-    return y, new_ctx
+    xp = torch.nn.functional.pad(x, (0, Np - N)) if Np != N else x
+    xr, xi, cr, ci = _DF._block_planes(xp, ctx, _CTX)
+    yr, yi, nr, ni = fir_planar(xr, xi, taps, cr, ci, tile_rows=tr,
+                                mode=mode)
+    y, tail = _DF._block_result(x, taps, yr[:N], yi[:N], nr, ni, T - 1)
+    if T == 1:
+        return y, ctx
+    if Np != N:
+        tail = torch.cat([ctx.to(x.dtype), x])[-(T - 1):]
+    return y, tail
 
 
 def fir_plain(xr, xi, taps, ctx_r, ctx_i):

@@ -18,8 +18,8 @@ Two block paths, as in the JAX package:
 
 Both draw the JAX package's bit streams from the same seed (the key is
 a bit-exact threefry port), and the states carry across from the JAX
-package (:func:`state_from_jax`, :func:`fast_state_from_jax`).  The
-composable ``make_pipeline`` waits for the port's runtime layer.
+package (:func:`state_from_jax`, :func:`fast_state_from_jax`).
+:func:`make_pipeline` is the pair path on the runtime layer.
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ import torch
 from comms_tpu_torch.ops import modulation, pulse, taps, txshape
 from comms_tpu_torch.ops import random as crandom
 
-__all__ = ["BpskTxConfig", "make_block_fn", "make_block_fn_fast",
-           "init_state", "init_state_fast", "state_from_jax",
-           "fast_state_from_jax", "run_to_file"]
+__all__ = ["BpskTxConfig", "make_block_fn", "make_pipeline",
+           "make_block_fn_fast", "init_state", "init_state_fast",
+           "state_from_jax", "fast_state_from_jax", "run_to_file"]
 
 SYMS_PER_BLOCK = 4096
 SPS = 4
@@ -115,6 +115,31 @@ def make_block_fn(cfg: BpskTxConfig):
         return iq, (key, new_ctx_pairs)
 
     return block
+
+
+def make_pipeline(cfg: Optional[BpskTxConfig] = None, seed: int = 0):
+    """The same chain on the runtime layer: a source-headed
+    :class:`comms_tpu_torch.runtime.Pipeline` (the reference's bpsk_mod
+    graph, examples/bpsk_mod.rs:124-161).  ``pipe.step(state)`` from
+    ``pipe.init_state()`` equals :func:`make_block_fn` from
+    :func:`init_state` with the same seed, bit for bit."""
+    from comms_tpu_torch.runtime import (BpskMod, Lambda, Pipeline,
+                                         PulseShape, RandomBitSource)
+
+    cfg = cfg or BpskTxConfig()
+    t = taps.rrc_taps(cfg.num_taps, float(cfg.sps),
+                      cfg.beta).astype(np.complex64)
+
+    def quantize(y):
+        return torch.stack([trunc_i16(y.real * cfg.scale),
+                            trunc_i16(y.imag * cfg.scale)], dim=-1)
+
+    return Pipeline([
+        RandomBitSource(cfg.syms_per_block, seed),
+        BpskMod(example_convention=True),
+        PulseShape.make(t, cfg.sps),
+        Lambda(quantize, result_dtype=torch.int16),
+    ])
 
 
 def init_state_fast(cfg: BpskTxConfig, seed: int = 0, device="cuda"):

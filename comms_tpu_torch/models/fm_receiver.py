@@ -14,6 +14,10 @@ Two ways to run a block:
 * :func:`make_fused_block_fn` — the single-kernel chain
   (:mod:`comms_tpu_torch.kernels.fm_chain`) over planar u8 planes; its
   carried context is recomputed per block from the raw input tail.
+* :func:`make_pipeline` — the chain as a composed
+  :class:`comms_tpu_torch.runtime.Pipeline` of BlockOps, whose two
+  decimating FIRs run on the decimating-FIR kernel (K2) where the block
+  meets its quantum.
 
 :func:`run_file` demodulates a recorded capture, taking the fused path
 on a CUDA device when the block size allows it.  The 63 LPF
@@ -31,7 +35,8 @@ from comms_tpu_torch.kernels import fm_chain
 from comms_tpu_torch.ops import demodulation, fir
 
 __all__ = ["FM_LPF_TAPS", "FmReceiverConfig", "make_block_fn",
-           "make_scan_fn", "init_state", "run_file", "make_fused_block_fn",
+           "make_scan_fn", "make_pipeline", "init_state", "run_file",
+           "make_fused_block_fn",
            "fused_init_state", "FUSED_BLOCK_QUANTUM", "FUSED_TAIL_SAMPLES",
            "fused_ctx_from_raw_tail", "state_from_jax",
            "fused_state_from_jax"]
@@ -169,6 +174,34 @@ def make_block_fn(cfg: FmReceiverConfig):
         return audio, new_state
 
     return block
+
+
+def make_pipeline(cfg: Optional[FmReceiverConfig] = None):
+    """The same chain on the runtime layer: a
+    :class:`comms_tpu_torch.runtime.Pipeline` of BlockOps, ``(state,
+    iq_u8[N, 2]) -> (audio[N/25], state)`` through ``pipe.step``.
+
+    Both stages are ``FirDecimate``: on K2's kernel where the block is a
+    multiple of its quantum (``runtime.block.kernel_quantum``: 5,120
+    samples at dec 5 for the first stage, and the second stage's input
+    the same multiple of its own), else on :func:`make_block_fn`'s
+    GEMM, to which it is then equal bit for bit.  The first stage's
+    taps are complex with zero imaginary parts, as in the JAX package;
+    they run as real taps."""
+    from comms_tpu_torch.runtime import FirDecimate, FmDemod, Lambda, Pipeline
+
+    cfg = cfg or FmReceiverConfig()
+
+    def convert(iq_u8):
+        f = (iq_u8.to(torch.float32) - 127.5) / 127.5
+        return torch.complex(f[:, 0], f[:, 1])
+
+    return Pipeline([
+        Lambda(convert, result_dtype=torch.complex64),
+        FirDecimate.make(FM_LPF_TAPS.astype(np.complex64), cfg.dec1),
+        FmDemod(fast=True),       # matches make_block_fn's demod
+        FirDecimate.make(FM_LPF_TAPS.astype(np.float32), cfg.dec2),
+    ])
 
 
 def make_scan_fn(cfg: FmReceiverConfig):

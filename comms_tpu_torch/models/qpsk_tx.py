@@ -12,6 +12,7 @@ product on the packed bit stream, the planar mixer from host angle
 tables, and the int32 pack (:mod:`comms_tpu_torch.ops.txshape`).  The
 carried mixer phase is the host fixed-point pair (hi, lo) of
 :mod:`comms_tpu_torch.ops.mixer`, exact over any stream length.
+:func:`make_pipeline` is the pair path on the runtime layer.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ from comms_tpu_torch.models.bpsk_tx import trunc_i16, write_blocks
 from comms_tpu_torch.ops import mixer, modulation, pulse, taps, txshape
 from comms_tpu_torch.ops import random as crandom
 
-__all__ = ["QpskTxConfig", "make_block_fn", "make_block_fn_fast",
-           "init_state", "init_state_fast", "state_from_jax",
-           "fast_state_from_jax", "run_to_file"]
+__all__ = ["QpskTxConfig", "make_block_fn", "make_pipeline",
+           "make_block_fn_fast", "init_state", "init_state_fast",
+           "state_from_jax", "fast_state_from_jax", "run_to_file"]
 
 
 class QpskTxConfig:
@@ -130,6 +131,33 @@ def make_block_fn(cfg: QpskTxConfig):
         return iq, (key, new_ctx_pairs, phase)
 
     return block
+
+
+def make_pipeline(cfg: Optional[QpskTxConfig] = None, seed: int = 0):
+    """The same chain on the runtime layer: a source-headed
+    :class:`comms_tpu_torch.runtime.Pipeline` (bits -> QPSK -> pulse
+    shape -> mixer -> i16).  ``pipe.step(state)`` from
+    ``pipe.init_state()`` equals :func:`make_block_fn` from
+    :func:`init_state` with the same seed, bit for bit."""
+    from comms_tpu_torch.runtime import (Lambda, Mixer, Pipeline,
+                                         PulseShape, QpskMod,
+                                         RandomBitSource)
+
+    cfg = cfg or QpskTxConfig()
+    t = taps.rrc_taps(cfg.num_taps, float(cfg.sps),
+                      cfg.beta).astype(np.complex64)
+
+    def quantize(y):
+        return torch.stack([trunc_i16(y.real * cfg.scale),
+                            trunc_i16(y.imag * cfg.scale)], dim=-1)
+
+    return Pipeline([
+        RandomBitSource(cfg.bits_per_block, seed),
+        QpskMod(example_convention=True),
+        PulseShape.make(t, cfg.sps),
+        Mixer(cfg.dphase, cfg.phase0),
+        Lambda(quantize, result_dtype=torch.int16),
+    ])
 
 
 def init_state_fast(cfg: QpskTxConfig, seed: int = 0, device="cuda"):

@@ -43,6 +43,7 @@ __all__ = [
     "fir_apply_planar",
     "decimating_branch_taps",
     "fir_decimate_poly",
+    "decimating_band",
     "piece_dots_accum",
     "poly_mac_frames",
     "fir_decimate_traced",
@@ -227,7 +228,15 @@ def _decimating_banded_matrix(flat_taps: np.ndarray, rate: int,
                     0).astype(flat_taps.dtype)
 
 
-def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES):
+def decimating_band(Hb, device, phases: int = _DEFAULT_PHASES):
+    """The band matrix :func:`fir_decimate_poly` multiplies by, for the
+    host [M, D] matrix ``Hb``, on ``device``: a caller that resolves it
+    once passes it back as ``band=`` and skips the lookup by content."""
+    return _band_on(np.asarray(Hb), phases, True, device)
+
+
+def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES,
+                      band=None):
     """Polyphase decimating FIR: computes ONLY the kept outputs.
 
         y[m] = sum_t taps[t] * x[m*D - t]
@@ -240,6 +249,8 @@ def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES):
 
     Leading axes of ``x`` and ``ctx`` are batch axes (one independent
     stream per row, as the JAX package's ``vmap`` over channels).
+    ``band``: :func:`decimating_band` of ``Hb`` on ``x``'s device, where
+    the caller holds it.
     """
     C = np.asarray(Hb)
     M, D = C.shape
@@ -249,7 +260,7 @@ def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES):
     frames = N // D
     T_pad = M * D
     P = int(phases)
-    B2 = _band_on(C, P, True, x.device)
+    B2 = _band_on(C, P, True, x.device) if band is None else band
     width = (P - 1) * D + T_pad
 
     xe = torch.cat([ctx.to(x.dtype), x], dim=-1)       # [T_pad - 1 + N]

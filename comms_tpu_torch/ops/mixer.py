@@ -144,10 +144,13 @@ def phase_fix_to_angle(p) -> np.float32:
 def mixer_block_fix(x, pfix, ramp, adv_fix):
     """Drift-free mixer block: :func:`mixer_block` with the fixed-point
     phase of :func:`phase_fix_init`, advanced by ``adv_fix`` from
-    :func:`advance_fix`.  Returns ``(y, new_pfix)``."""
+    :func:`advance_fix`.  ``ramp``: the host ramp, or a tensor of it on
+    ``x``'s device that the caller resolved once.  Returns ``(y,
+    new_pfix)``."""
     phi0 = phase_fix_to_angle(pfix)
     phasor = complex(np.complex64(np.exp(1j * np.float32(phi0))))
-    r = _build.device_constant(ramp, x.device, np.complex64)
+    r = (ramp if isinstance(ramp, torch.Tensor)
+         else _build.device_constant(ramp, x.device, np.complex64))
     y = x * (phasor * r).to(x.dtype)
     return y, add_fix(pfix, adv_fix)
 

@@ -28,6 +28,8 @@ __all__ = [
     "pulse_init_ctx",
     "pulse_shape_block",
     "pulse_shape_apply",
+    "shape_dtype",
+    "flipped_taps",
 ]
 
 _NP_OF = {torch.complex64: np.complex64, torch.complex128: np.complex128,
@@ -53,22 +55,39 @@ def pulse_init_ctx(num_taps: int, sps: int, dtype=torch.complex64,
     return torch.zeros(max(M - 1, 0), dtype=dtype, device=device)
 
 
-def pulse_shape_block(symbols, phase_taps, ctx):
+def shape_dtype(sym_dtype, phase_taps) -> torch.dtype:
+    """Output dtype of :func:`pulse_shape_block` for symbols of
+    ``sym_dtype`` and the host ``phase_taps``."""
+    return torch.promote_types(
+        sym_dtype, torch.from_numpy(np.zeros(0, phase_taps.dtype)).dtype)
+
+
+def flipped_taps(phase_taps, device, dtype) -> torch.Tensor:
+    """The [M, sps] matrix :func:`pulse_shape_block` multiplies by, on
+    ``device`` in ``dtype`` (the output dtype): a caller that resolves it
+    once passes it back as ``taps_dev=``."""
+    return torch.from_numpy(
+        np.flip(np.asarray(phase_taps), axis=0).astype(_NP_OF[dtype])
+    ).to(device)
+
+
+def pulse_shape_block(symbols, phase_taps, ctx, taps_dev=None):
     """Shape one block of symbols.  Returns ``(samples, new_ctx)`` with
     ``len(samples) == len(symbols) * sps``, on the symbols' device.
 
     ``phase_taps`` is the host [M, sps] matrix from
     :func:`polyphase_taps` (flipped here so the product reads a causal
-    window).
+    window); ``taps_dev``, where the caller holds it, is
+    :func:`flipped_taps` of it on the symbols' device.
     """
     sym = symbols
     H = np.asarray(phase_taps)
     M, sps = H.shape
     K = sym.shape[0]
-    out_dtype = torch.promote_types(
-        sym.dtype, torch.from_numpy(np.zeros(0, H.dtype)).dtype)
-    Hd = _build.device_constant(np.flip(H, axis=0), sym.device,
-                                _NP_OF[out_dtype])
+    out_dtype = shape_dtype(sym.dtype, H)
+    Hd = (taps_dev if taps_dev is not None else
+          _build.device_constant(np.flip(H, axis=0), sym.device,
+                                 _NP_OF[out_dtype]))
     if M == 1:
         return (sym[:, None].to(out_dtype) * Hd[0][None, :]).reshape(
             K * sps), ctx

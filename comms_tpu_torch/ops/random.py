@@ -22,9 +22,11 @@ and ``>>`` on a signed type is arithmetic).  A key is an int64 tensor
 [2] (hi, lo) on the device the blocks are drawn on; the carried state of
 a source is its key, split once per block.
 
-``normal`` (float32) takes XLA's float32 ``erf_inv`` polynomial,
-through torch's ``log1p`` and ``sqrt``: it agrees with the JAX package
-to 4 float32 ulp, not bit for bit.  Everything else here is exact.
+``normal`` takes XLA's ``erf_inv`` polynomial of its dtype: in float32
+through torch's ``log1p`` and ``sqrt``, within 4 ulp of the JAX package;
+in float64 through XLA's own ``log1p`` (carried here too), within 3 ulp
+(XLA fuses the polynomial's multiply-adds, torch rounds each).  Neither
+is bit for bit.  Everything else here is exact.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ __all__ = [
     "uniform",
     "normal",
     "erfinv_f32",
+    "erfinv_f64",
     "key_from_words",
     "source_init",
     "uniform_block",
@@ -214,16 +217,116 @@ def erfinv_f32(x) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
+# XLA's float64 erf_inv (Giles' double-precision approximation): a
+# polynomial in w = -log1p(-x^2), shifted, in three ranges -- degree 22
+# for w < 6.25, 18 for w < 16, 16 above.  The three coefficient lists
+# are evaluated as one Horner chain: the shorter ones are the tails of
+# the chain, entered where their range's list begins.
+_ERFINV64_W_LT_6_25 = (
+    -3.6444120640178196996e-21, -1.685059138182016589e-19,
+    1.2858480715256400167e-18, 1.115787767802518096e-17,
+    -1.333171662854620906e-16, 2.0972767875968561637e-17,
+    6.6376381343583238325e-15, -4.0545662729752068639e-14,
+    -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+    -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+    1.051212273321532285e-09, -4.1126339803469836976e-09,
+    -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+    -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+    0.0001867342080340571352, -0.00074070253416626697512,
+    -0.0060336708714301490533, 0.24015818242558961693,
+    1.6536545626831027356)
+_ERFINV64_W_LT_16 = (
+    2.2137376921775787049e-09, 9.0756561938885390979e-08,
+    -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+    1.5027403968909827627e-06, -4.013867526981545969e-06,
+    2.9234449089955446044e-06, 1.2475304481671778723e-05,
+    -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+    2.4031110387097893999e-05, -0.0003550375203628474796,
+    0.00095328937973738049703, -0.0016882755560235047313,
+    0.0024914420961078508066, -0.0037512085075692412107,
+    0.005370914553590063617, 1.0052589676941592334,
+    3.0838856104922207635)
+_ERFINV64_W_GE_16 = (
+    -2.7109920616438573243e-11, -2.5556418169965252055e-10,
+    1.5076572693500548083e-09, -3.7894654401267369937e-09,
+    7.6157012080783393804e-09, -1.4960026627149240478e-08,
+    2.9147953450901080826e-08, -6.7711997758452339498e-08,
+    2.2900482228026654717e-07, -9.9298272942317002539e-07,
+    4.5260625972231537039e-06, -1.9681778105531670567e-05,
+    7.5995277030017761139e-05, -0.00021503011930044477347,
+    -0.00013871931833623122026, 1.0103004648645343977,
+    4.8499064014085844221)
+
+
+# XLA's float64 log1p on the CPU: for |x| < sqrt(2) - 1 Cephes'
+# rational approximation x - x^2/2 + x^3 * P(x) / Q(x), else log(1 + x).
+# It is up to ~1e-14 relative from the true value, which torch.log1p
+# is not, and erf_inv's w goes through it.
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _log1p_xla(x):
+    def poly(cs):
+        p = torch.zeros_like(x)
+        for c in cs:
+            p = p * x + c
+        return p
+
+    x2 = x * x
+    small = x + (-0.5 * x2 + (x * x2) * (poly(_LOG1P_P) / poly(_LOG1P_Q)))
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       torch.log(x + 1.0))
+
+
+def erfinv_f64(x) -> torch.Tensor:
+    """``erfinv`` of float64 ``x`` as XLA computes it (the JAX package's
+    ``lax.erf_inv`` in float64, through XLA's ``log1p``;
+    ``torch.erfinv`` differs from it by up to ~1e-10 relative in the
+    tails)."""
+    w = -_log1p_xla(x * -x)
+    lt625 = w < 6.25
+    lt16 = w < 16.0
+    w = torch.where(lt625, w - 3.125,
+                    torch.sqrt(w) - torch.where(lt16, 3.25, 5.0))
+
+    def coef(i):
+        c = torch.full_like(x, _ERFINV64_W_LT_6_25[i])
+        if i < 19:
+            c = torch.where(lt625, c, _ERFINV64_W_LT_16[i])
+        if i < 17:
+            c = torch.where(lt16, c, _ERFINV64_W_GE_16[i])
+        return c
+
+    p = coef(0)
+    for i in range(1, 17):
+        p = coef(i) + p * w
+    for i in range(17, 19):
+        p = torch.where(lt16, coef(i) + p * w, p)
+    for i in range(19, 23):
+        p = torch.where(lt625, coef(i) + p * w, p)
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
 def normal(key, n: int, dtype=torch.float32) -> torch.Tensor:
     """``n`` standard normal samples: ``sqrt(2) * erfinv(u)`` with ``u``
-    uniform on the open interval (-1, 1), through XLA's float32
-    :func:`erfinv_f32` (float32 only: XLA's float64 polynomial is not
-    carried here)."""
-    if dtype != torch.float32:
-        raise TypeError(f"normal takes float32, got {dtype}")
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform(key, n, float(lo), 1.0)
-    return float(np.float32(np.sqrt(2))) * erfinv_f32(u)
+    uniform on the open interval (-1, 1), through XLA's polynomial of
+    the dtype (:func:`erfinv_f32`, :func:`erfinv_f64`); ``sqrt(2)`` is
+    rounded to the dtype, as JAX rounds it.  float32 or float64."""
+    if dtype == torch.float32:
+        np_dt, erfinv = np.float32, erfinv_f32
+    elif dtype == torch.float64:
+        np_dt, erfinv = np.float64, erfinv_f64
+    else:
+        raise TypeError(f"normal takes float32 or float64, got {dtype}")
+    lo = np.nextafter(np_dt(-1.0), np_dt(0.0))
+    u = uniform(key, n, float(lo), 1.0, dtype)
+    return float(np_dt(np.sqrt(2))) * erfinv(u)
 
 
 def source_init(seed: int, device="cuda") -> torch.Tensor:

@@ -8,6 +8,9 @@ assertions:
 1. the sharded wideband chain (ring halos + estimator psum), streamed,
    and the ``rdma_halo`` build equal to the default bit for bit;
 2. the fused FM chain per shard (K1), raw-tail context from the ring;
+3. the sharded source-headed ``Pipeline`` (PRN -> BPSK -> pulse shape),
+   the sharded ``Nco`` (a cross-shard prefix of the phase errors) and a
+   ``Graph`` feedback loop (its value 3.0 after three steps);
 4. the corner-turn channelizer (all-to-all), the distributed FFT against
    numpy, and the segment-parallel Welch PSD (K10 per shard);
 5. the planar FIR (K4) and decimating FIR (K2) kernels per shard, their
@@ -19,9 +22,7 @@ assertions:
 9. the 2-D (time x chan) band monitor against the one-device band
    monitor.
 
-Config 3 (the sharded source-headed ``Pipeline``) waits for the port's
-composable runtime; config 8 (multi-host wiring) for its multi-process
-layer.
+Config 8 (multi-host wiring) waits for the port's multi-process layer.
 
     python -m comms_tpu_torch.parallel.dryrun [--shards 8] [--device cuda]
 """
@@ -79,6 +80,47 @@ def _dryrun_fused(n, mesh, device):
     audio2, _ = step(state, re, im)              # carried state round-trip
     assert torch.isfinite(audio).all() and torch.isfinite(audio2).all()
     assert audio.shape[0] == N // 25
+
+
+def _dryrun_pipeline(n, mesh, device):
+    """Config 3: source-headed Pipeline (PRN -> BPSK -> pulse shape), an
+    NCO with the cross-shard prefix sum, and a Graph feedback loop."""
+    from comms_tpu_torch.ops import taps
+    from comms_tpu_torch.runtime import (BpskMod, Graph, Lambda, Nco,
+                                         Pipeline, PrnSource, PulseShape)
+
+    t = taps.rrc_taps(32, 4.0, 0.25).astype(np.complex64)
+    pipe = Pipeline([
+        PrnSource.make(0xC0, 0x5A, 8, 64 * n),
+        BpskMod(),
+        PulseShape.make(t, 4),
+    ])
+    step = pipe.make_sharded_step(mesh)
+    s = pipe.init_state(device)
+    y, s = step(s, None)
+    y2, _ = step(s, None)
+    assert y.shape == (256 * n,)
+    assert torch.isfinite(torch.view_as_real(y2)).all()
+
+    nco = Pipeline([Nco(dphase=0.37, phase0=1.1)])
+    nstep = nco.make_sharded_step(mesh)
+    perr = torch.full((128 * n,), 0.01, dtype=torch.float32, device=device)
+    z, _ = nstep(nco.init_state(device), perr)
+    assert z.shape == (128 * n,)
+
+    g = Graph()
+    g.add_input("x")
+    g.add_node("sum", lambda a, b: a + b, ["x", "acc"],
+               feedback_from={"acc": torch.zeros(8 * n, device=device)},
+               elementwise=True)
+    g.add_node("acc", Lambda(lambda v: v), ["sum"])
+    g.set_outputs(["acc"])
+    gstep = g.make_sharded_step(mesh)
+    gs = g.init_state(device=device)
+    x = torch.ones(8 * n, dtype=torch.float32, device=device)
+    for _ in range(3):
+        (out,), gs = gstep(gs, {"x": x})
+    assert float(out[0]) == 3.0
 
 
 def _dryrun_channel_parallel(n, mesh, device):
@@ -206,12 +248,13 @@ def _dryrun_mesh2d(n, device):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """Run configurations 1, 2, 4, 5, 6, 7 and 9 on an ``n_devices``-shard
+    """Run configurations 1-7 and 9 on an ``n_devices``-shard
     in-process mesh on ``device`` (module docstring)."""
     n = int(n_devices)
     mesh = sh.time_mesh(n, device=device)
     _dryrun_wideband(n, mesh, device)
     _dryrun_fused(n, mesh, device)
+    _dryrun_pipeline(n, mesh, device)
     _dryrun_channel_parallel(n, mesh, device)
     _dryrun_planar_kernels(n, mesh, device)
     _dryrun_band_monitor(n, mesh, device)

@@ -189,3 +189,35 @@ def test_poly_entry_rejections():
         TDF.poly_fir(z[:1000], np.ones(8), c, 2)
     with pytest.raises(ValueError, match="ctx must be"):
         TDF.poly_fir(z, np.ones(8), c[:100], 2)
+
+
+@pytest.mark.parametrize("x_cplx,taps_cplx", [(True, False), (False, False),
+                                              (False, True), (True, True)])
+def test_block_entry_matches_jax_op(x_cplx, taps_cplx):
+    """``fir_decimate_block`` carries the JAX op's MD-1 state: two chained
+    blocks from a mid-stream state match ``ops.fir.fir_decimate_poly``,
+    and each new state equals the JAX op's."""
+    from comms_tpu.ops import fir as jfir
+    rng = np.random.default_rng(10 * x_cplx + taps_cplx)
+    dec, T = 5, 63
+    MD = dec * -(-T // dec)
+    N = 8 * dec * 128 * 2
+    taps = _x(rng, T) if taps_cplx else rng.normal(size=T).astype(
+        np.float32)
+    Hb = jfir.decimating_branch_taps(taps, dec)
+    def stream(n):
+        return _x(rng, n) if x_cplx else rng.normal(size=n).astype(
+            np.float32)
+    ctx = stream(MD - 1)
+    jc, tc = jnp.asarray(ctx), torch.from_numpy(ctx)
+    for _ in range(2):
+        x = stream(N)
+        want, jc = jfir.fir_decimate_poly(jnp.asarray(x), Hb, jc)
+        launches = TDF.launches
+        got, tc = TDF.fir_decimate_block(torch.from_numpy(x), taps, dec, tc)
+        assert TDF.launches == launches      # CPU tensors: no kernel
+        assert got.is_complex() == (x_cplx or taps_cplx)
+        w = np.asarray(want)
+        assert got.shape == w.shape == (N // dec,)
+        assert np.max(np.abs(got.numpy() - w)) < TOL_SPLIT * np.max(np.abs(w))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))

@@ -31,7 +31,12 @@ from comms_tpu_torch.parallel import scaling as tscal
 from comms_tpu_torch.parallel import sharding as tsh
 from comms_tpu_torch.parallel import wideband as twb
 from comms_tpu_torch.parallel import wideband2d as tw2
+from comms_tpu_torch import runtime as trt
+from comms_tpu_torch.ops import resample as tres
 from comms_tpu_torch.runtime import StreamRunner
+from comms_tpu_torch.runtime import block as tblock
+from comms_tpu_torch.runtime import checkpoint as tck
+from comms_tpu_torch.runtime import metrics as tmet
 
 _FM = tfm.FmReceiverConfig(block=2000)
 _BM = tbm.BandMonitorConfig(num_channels=8, block=TBM.step_samples())
@@ -58,6 +63,42 @@ def _stream_runner(tmp_path):
                           [np.zeros(16, np.float32)], sink=lambda y: None)
     return runner.run()
 
+
+def _batched_runner(tmp_path):
+    runner = trt.BatchedStreamRunner(
+        lambda s, x: (x, s), [None, None],
+        sources=[[np.zeros(16, np.float32)]] * 2,
+        sinks=[lambda y: None] * 2)
+    return runner.run()
+
+
+def _pipe():
+    return trt.Pipeline([trt.FirDecimate.make(np.ones(8), 2), trt.FmDemod()])
+
+
+def _graph():
+    g = trt.Graph()
+    g.add_input("x")
+    g.add_node("f", trt.Fir.make(np.ones(4)), ["x"])
+    g.set_outputs(["f"])
+    return g
+
+
+# the BlockOps whose state lives on the device (Mixer's is host words,
+# the rest have none: their signatures are checked below)
+_OPS = {
+    "Fir": trt.Fir.make(np.ones(4)),
+    "FirDecimate": trt.FirDecimate.make(np.ones(8), 2),
+    "Nco": trt.Nco(0.1),
+    "FmDemod": trt.FmDemod(),
+    "Decimate": trt.Decimate(2, streaming=True),
+    "RationalResample": trt.RationalResample.make(np.ones(6), 3, 2),
+    "PulseShape": trt.PulseShape.make(np.ones(8), 4),
+    "PrnSource": trt.PrnSource.make(0xC0, 1, 8, 16),
+    "UniformSource": trt.UniformSource(16),
+    "NormalSource": trt.NormalSource(16),
+    "RandomBitSource": trt.RandomBitSource(16),
+}
 
 ENTRY_POINTS = {
     "run_file": (tfm.run_file, _run_file),
@@ -152,6 +193,25 @@ ENTRY_POINTS = {
                                            (0, 0)))),
     "qpsk_tx.run_to_file": (tqt.run_to_file, _tx_file(tqt, _QT, False)),
     "qpsk_tx.run_to_file_fast": (tqt.run_to_file, _tx_file(tqt, _QT, True)),
+    **{f"runtime.{k}.init_state": (type(op).init_state,
+                                   lambda _, op=op: op.init_state())
+       for k, op in _OPS.items()},
+    "runtime.Pipeline.init_state": (trt.Pipeline.init_state,
+                                    lambda _: _pipe().init_state()),
+    "runtime.Graph.init_state": (trt.Graph.init_state,
+                                 lambda _: _graph().init_state()),
+    "runtime.checkpoint.state_from_jax": (
+        tck.state_from_jax,
+        lambda _: tck.state_from_jax(_pipe(), [np.zeros(7), np.zeros(())])),
+    "runtime.BatchedStreamRunner.run": (trt.BatchedStreamRunner.__init__,
+                                        _batched_runner),
+    "runtime.metrics.sync_overhead": (tmet.sync_overhead,
+                                      lambda _: tmet.sync_overhead(1)),
+    "ops.resample.decimate_stream_init": (
+        tres.decimate_stream_init, lambda _: tres.decimate_stream_init()),
+    "ops.resample.rational_resample_init": (
+        tres.rational_resample_init,
+        lambda _: tres.rational_resample_init([np.ones((2, 2))])),
     "parallel.dryrun.dryrun_multichip": (
         tdry.dryrun_multichip, lambda _: tdry.dryrun_multichip(2)),
 }
@@ -165,3 +225,11 @@ def test_entry_point_defaults_to_the_card(name, tmp_path):
         pytest.skip("a CUDA device is present: the default call is valid")
     with pytest.raises((RuntimeError, AssertionError)):
         call(tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in tblock.__all__ if isinstance(getattr(tblock, n), type)))
+def test_every_blockop_state_defaults_to_the_card(name):
+    cls = getattr(tblock, name)
+    sig = inspect.signature(cls.init_state)
+    assert sig.parameters["device"].default == "cuda"

@@ -126,3 +126,27 @@ def test_fir_validation_errors():
         TFK.fir_planar(z, z, np.ones(5), cr, ci, tile_rows=12)
     with pytest.raises(ValueError, match="1024 samples"):
         TFK.fir_planar(z, z, np.ones(5), cr[:4], ci[:4], tile_rows=8)
+
+
+@pytest.mark.parametrize("N,cplx_taps", [(2048, False), (2048, True),
+                                         (5000, False)])
+def test_fir_block_real_stream_matches_jax_op(N, cplx_taps):
+    """A float32 stream (its imaginary plane zero): a real output through
+    real taps, a complex one through complex taps; the new context is
+    the block's tail, from the kernel's next context where the block
+    fills its tiles and from the block itself where it is padded."""
+    from comms_tpu.ops import fir as jfir
+    rng = np.random.default_rng(N + cplx_taps)
+    T = 33
+    taps = _cx(rng, T) if cplx_taps else rng.normal(size=T).astype(
+        np.float32)
+    x = rng.normal(size=N).astype(np.float32)
+    ctx = rng.normal(size=T - 1).astype(np.float32)
+    want, want_ctx = jfir.fir_block(jnp.asarray(x), taps, jnp.asarray(ctx))
+    got, got_ctx = TFK.fir_block(torch.from_numpy(x), taps,
+                                 torch.from_numpy(ctx),
+                                 tile_rows=8 if N % 1024 == 0 else None)
+    assert got.is_complex() == cplx_taps
+    assert _rel(got.numpy(), want) < TOL
+    assert got_ctx.dtype == torch.float32
+    np.testing.assert_array_equal(got_ctx.numpy(), np.asarray(want_ctx))

@@ -135,6 +135,9 @@ def test_package_imports_no_jax():
                  "ops.spectrum", "ops.random", "ops.modulation",
                  "ops.pulse", "ops.prns", "ops.txshape",
                  "models.bpsk_tx", "models.qpsk_tx", "io.raw_iq",
+                 "ops.resample", "runtime.block", "runtime.pipeline",
+                 "runtime.graph", "runtime.checkpoint", "runtime.boundary",
+                 "runtime.metrics", "runtime.stream", "runtime._tree",
                  "util.snr",
                  "kernels._build", "kernels.fm_chain", "kernels.channelizer",
                  "kernels.decim_fir", "kernels.band_monitor", "kernels.fir",
