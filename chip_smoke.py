@@ -154,7 +154,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    the ``Graph`` feedback doubler; a checkpoint saved mid-stream and
    resumed bit for bit; ``BatchedStreamRunner`` over 3 FM streams against
    separate runs; kernel rows for K2 at the pipeline's two stages, K4 and
-   K2 under the ops, and K12 at the pipeline's halos.
+   K2 under the ops, and K12 at the pipeline's halos;
+20. the QPSK link (the counts of K5 and of the recurrence kernels start
+   at 0 before each path and are read after it): the fused stream step
+   over 3 streams of 262,144 samples through ``BatchedStreamRunner`` with
+   ``mode="vmap"`` (the step runs once a stream) bit-equal to
+   ``mode="unroll"``; the Costas-loop kernel against its plain version at
+   2,048 and 16,384 symbols and timed at 2,048 and 2^20; the AGC scan
+   kernel against its plain version at 4,096 samples and timed at 4,096
+   and 262,144; the Costas receiver (``make_stream_fn``, 8,192-sample
+   blocks) served through ``StreamRunner`` over the JAX test's channel
+   (34 blocks, a carrier step at block 17), zero bit errors after 3
+   acquisition blocks, then served again over the same blocks for its
+   rate (each step call's host time on both passes), with its host
+   enqueue, device ms and a profile of one block; the network loopback: the port's QPSK
+   transmitter on the card (4,096 bits a block, 128 blocks) through
+   ``qpsk_stream.stream_blocks`` over TCP on 127.0.0.1 to
+   ``receive_blocks`` in a thread, raw and CBOR, then the Costas receiver
+   on the card, zero bit errors after acquisition; the split serving
+   step against the fast step (1e-5) and the ``est_lag=2`` fused step
+   (zero bit errors after its two warm-up blocks) at 33,554,432 samples,
+   each served with no sink beside the fused step (``est_lag=1``), with
+   K5's launches a block; kernel rows for the Costas loop and the AGC
+   scan.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
@@ -3274,6 +3296,458 @@ def runtime_phases(dev, card: str) -> list:
     return rows
 
 
+# ---- phase 20: the QPSK link
+# The Costas receiver's block (examples/qpsk_receiver.py) and the JAX
+# test's channel (tests/test_qpsk_rx_stream.py:56-95); the network
+# loopback's transmitter (4096 bits a block, 8192 samples: one receiver
+# block); the recurrence kernels' comparison and timing sizes.
+LINK_BLOCK = 8192
+LINK_BLOCKS = 34
+LINK_SEED = 11
+LINK_DELAY, LINK_PHASE = 1.7, 0.9
+LINK_W1, LINK_W2, LINK_STEP_BLOCK = 0.01, 0.012, 17
+LINK_SKIP = 3            # acquisition blocks of the Costas receiver
+NET_BLOCKS = 128         # 128 x 8192 = 1,048,576 samples
+NET_BITS = 4096
+NET_SEED = 5
+COSTAS_CHECK = (2048, 16384)
+COSTAS_LONG = 1 << 20
+AGC_CHECK = 4096
+AGC_LONG = 262_144       # the rtl-sdr read
+VMAP_STREAMS = 3
+TOL_REC = 1e-5           # recurrence kernels against plain (O(1) values)
+TOL_SPLIT = 1e-5         # split vs fast (tests/test_qpsk_rx_stream.py:213)
+# Dependent-chain floor estimates of the recurrences (csrc/recurrence.cu):
+# ~215 cycles a Costas step, ~150 an AGC step, at 1.98 GHz.
+COSTAS_FLOOR_NS = 215 / 1.98
+AGC_FLOOR_NS = 150 / 1.98
+
+
+def link_channel(n_blocks: int, block: int, seed: int):
+    """The JAX Costas test's channel (numpy): random bits, qpsk_tx's RRC
+    (unit energy), a fractional delay, a carrier 0.01 -> 0.012 rad/sample
+    from block LINK_STEP_BLOCK, phase LINK_PHASE.  Returns the bits and
+    float32 pairs [n_blocks * block, 2]."""
+    from comms_tpu_torch.ops import taps as ttaps
+
+    n_sym = n_blocks * block // 4 + 64
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, size=2 * n_sym).astype(np.uint8)
+    rrc = np.asarray(ttaps.rrc_taps(32, 4.0, 0.25))
+    rrc = rrc / np.sqrt(np.sum(np.abs(rrc) ** 2))
+    p = bits.reshape(-1, 2)
+    up = np.zeros(4 * n_sym, np.complex64)
+    up[::4] = ((2.0 * p[:, 0] - 1) + 1j * (2.0 * p[:, 1] - 1))
+    s = np.convolve(up, rrc.astype(np.complex64))[:len(up)]
+    X = np.fft.fft(np.concatenate([s, np.zeros(256, s.dtype)]))
+    k = np.fft.fftfreq(len(X))
+    s = np.fft.ifft(X * np.exp(-2j * np.pi * k * LINK_DELAY))[:len(s)]
+    n = np.arange(len(s))
+    dph = np.where(n < LINK_STEP_BLOCK * block, LINK_W1, LINK_W2)
+    r = s.astype(np.complex64) * np.exp(
+        1j * (LINK_PHASE + np.cumsum(dph))).astype(np.complex64)
+    r = r[:n_blocks * block]
+    return bits, np.stack([r.real, r.imag], -1).astype(np.float32)
+
+
+def best_align(sym: np.ndarray, bits: np.ndarray, start_sym: int,
+               max_lag: int = 24):
+    """``(errors, compared, rot, lag)``: the best of the 4 rotations x
+    symbol lags in [-max_lag, max_lag] of the complex symbols ``sym``
+    (stream symbol ``start_sym`` first) against ``bits``, compared over
+    the whole overlap (the JAX test's ``_best_align``)."""
+    from comms_tpu_torch.models import qpsk_rx as trx
+
+    best = None
+    for rot in range(4):
+        cand = trx.decide_bits(sym * np.exp(1j * np.pi / 2 * rot))
+        for lag in range(-max_lag, max_lag + 1):
+            start = 2 * (start_sym + lag)
+            if start < 0:
+                continue
+            ref = bits[start:]
+            m = min(len(cand), len(ref))
+            errs = int(np.count_nonzero(cand[:m] != ref[:m]))
+            if best is None or errs < best[0]:
+                best = (errs, m, rot, lag)
+    return best
+
+
+def locked_symbols(n: int, seed: int, dev):
+    """QPSK symbols at the receiver's level turned by 0.05 rad plus 1e-3
+    rad a symbol, with noise of sigma 0.02: the Costas loop is locked from
+    the first symbol."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 2, size=(2, n))
+    s = ((2 * b[0] - 1) + 1j * (2 * b[1] - 1)) * np.exp(
+        1j * (0.05 + 1e-3 * np.arange(n)))
+    s = s + 0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    return torch.from_numpy(s.astype(np.complex64)).to(dev)
+
+
+def qpsk_link_phases(dev, card: str) -> list:
+    """Phase 20: the QPSK link; returns the recurrence kernels' rows."""
+    import threading
+
+    import torch
+
+    from comms_tpu_torch.kernels import qpsk_sym as QS
+    from comms_tpu_torch.kernels import recurrence as R
+    from comms_tpu_torch.models import qpsk_rx as trx
+    from comms_tpu_torch.models import qpsk_rx_stream as tstream
+    from comms_tpu_torch.models import qpsk_stream
+    from comms_tpu_torch.models import qpsk_tx as tq
+    from comms_tpu_torch.ops import agc
+    from comms_tpu_torch.ops import random as trand
+    from comms_tpu_torch.runtime import BatchedStreamRunner, StreamRunner
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for k in QS.launches:
+            QS.launches[k] = 0
+        for k in R.launches:
+            R.launches[k] = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**{k: QS.launches[k] for k in ("qpsk_symbol_gemm_scalars",
+                                               "qpsk_panels",
+                                               "qpsk_symbols")},
+                **R.launches}
+
+    # ---- 20a. vmap: 3 fused QPSK streams of IN_PER_STEP samples, two
+    # rounds, against unroll; the vmapped step runs once a stream, so
+    # K5's launches are counted once a stream
+    B = QS.IN_PER_STEP
+    re, im, bits = qpsk_capture(dev, seed=13)
+    rcfg = trx.QpskRxConfig()
+    fused = tstream.make_stream_fused_fn(rcfg)
+    rounds = [tuple(torch.stack([p[(2 * s + k) * B:(2 * s + k + 1) * B]
+                                 for s in range(VMAP_STREAMS)])
+                    for p in (re, im)) for k in range(2)]
+    lifted = {}
+    for mode in ("unroll", "vmap"):
+        got = [[] for _ in range(VMAP_STREAMS)]
+        zero_counts()
+        r = BatchedStreamRunner(
+            lambda st, x: fused(st, *x),
+            [tstream.init_state_fast(rcfg, dev)
+             for _ in range(VMAP_STREAMS)],
+            batched_source=rounds, sinks=[g.append for g in got],
+            depth=2, mode=mode, device=dev)
+        r.run()
+        lifted[mode] = (got, r.stream_states(), counts())
+    print(f"batched fused QPSK step, {VMAP_STREAMS} streams x 2 rounds of "
+          f"{B} samples on {card}: launches unroll "
+          f"{json.dumps(lifted['unroll'][2])}, vmap "
+          f"{json.dumps(lifted['vmap'][2])}")
+    want_k5 = 2 * VMAP_STREAMS
+    for mode, (_, _, c) in lifted.items():
+        if (c["qpsk_symbol_gemm_scalars"] != want_k5
+                or c["qpsk_symbols"] != want_k5):
+            fail(f"batched fused step ({mode}): K5 launches {c}")
+    for s in range(VMAP_STREAMS):
+        for k in range(2):
+            if not np.array_equal(lifted["vmap"][0][s][k],
+                                  lifted["unroll"][0][s][k]):
+                d = np.abs(lifted["vmap"][0][s][k]
+                           - lifted["unroll"][0][s][k]).max()
+                fail(f"vmap differs from unroll: stream {s} round {k}, "
+                     f"max {d:.3g}")
+        for key, v in lifted["unroll"][1][s].items():
+            if not torch.equal(lifted["vmap"][1][s][key], v):
+                fail(f"vmap state {key} of stream {s} differs from unroll")
+    print("vmap equals unroll bit for bit (symbols and states)")
+    del rounds, lifted
+
+    # ---- 20b. the Costas kernel against its plain version, then times
+    rows = []
+    errs = {}
+    for n in COSTAS_CHECK:
+        x = locked_symbols(n, n, dev)
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        ph0 = torch.tensor(0.01, device=dev)
+        fr0 = torch.tensor(-2e-4, device=dev)
+        got = R.costas_loop(xr, xi, ph0, fr0, 0.1, 0.005)
+        want = R.costas_loop_plain(xr, xi, ph0, fr0, 0.1, 0.005)
+        errs[n] = max(max_err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"costas_loop at {n} symbols on {card}: kernel vs plain max "
+              f"{errs[n]:.3g} ({'bit for bit' if same else 'not bit-equal'})")
+        if errs[n] > TOL_REC:
+            fail(f"costas_loop at {n} symbols: {errs[n]} > {TOL_REC}")
+    n = COSTAS_CHECK[0]
+    x = locked_symbols(n, 1, dev)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    z = torch.zeros((), device=dev)
+    costas_ms = cuda_ms(lambda: R.costas_loop(xr, xi, z, z, 0.1, 0.005))
+    costas_plain_ms = cuda_ms(
+        lambda: R.costas_loop_plain(xr, xi, z, z, 0.1, 0.005), reps=3,
+        warmup=1)
+    xl = locked_symbols(COSTAS_LONG, 2, dev)
+    lr, li = xl.real.contiguous(), xl.imag.contiguous()
+    long_ms = cuda_ms(lambda: R.costas_loop(lr, li, z, z, 0.1, 0.005),
+                      reps=3, warmup=1)
+    print(f"costas_loop on {card}: kernel {costas_ms:.4f} ms at {n} symbols "
+          f"({1e6 * costas_ms / n:.1f} ns a symbol), {long_ms:.4f} ms at "
+          f"{COSTAS_LONG} ({1e6 * long_ms / COSTAS_LONG:.1f} ns a symbol); "
+          f"plain {costas_plain_ms:.4f} ms at {n}; the dependent chain's "
+          f"floor (an estimate) {COSTAS_FLOOR_NS:.0f} ns a symbol")
+    del xl, lr, li
+
+    # ---- 20c. the AGC scan kernel against its plain version, then times
+    rng = np.random.default_rng(4)
+    amp = np.where(np.arange(AGC_CHECK) < AGC_CHECK // 2, 0.1, 2.0)
+    xa = torch.from_numpy((amp * np.exp(1j * 0.3 * np.arange(AGC_CHECK))
+                           + 0.01 * rng.normal(size=AGC_CHECK))
+                          .astype(np.complex64)).to(dev)
+    g0 = agc.agc_init(device=dev)
+    ar, ai = xa.real.contiguous(), xa.imag.contiguous()
+    got = R.agc_scan(ar, ai, g0, 1.0, 5e-2)
+    want = R.agc_scan_plain(ar, ai, g0, 1.0, 5e-2)
+    agc_err = max(max_err(g, w) for g, w in zip(got, want))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"agc_scan at {AGC_CHECK} samples on {card}: kernel vs plain max "
+          f"{agc_err:.3g} ({'bit for bit' if same else 'not bit-equal'})")
+    if agc_err > TOL_REC:
+        fail(f"agc_scan: {agc_err} > {TOL_REC}")
+    agc_ms = cuda_ms(lambda: R.agc_scan(ar, ai, g0, 1.0, 5e-2))
+    agc_plain_ms = cuda_ms(lambda: R.agc_scan_plain(ar, ai, g0, 1.0, 5e-2),
+                           reps=3, warmup=1)
+    xl = torch.randn(2, AGC_LONG, device=dev)
+    agc_long_ms = cuda_ms(lambda: R.agc_scan(xl[0], xl[1], g0, 1.0, 1e-2),
+                          reps=3, warmup=1)
+    print(f"agc_scan on {card}: kernel {agc_ms:.4f} ms at {AGC_CHECK} "
+          f"samples ({1e6 * agc_ms / AGC_CHECK:.1f} ns a sample), "
+          f"{agc_long_ms:.4f} ms at {AGC_LONG} "
+          f"({1e6 * agc_long_ms / AGC_LONG:.1f} ns a sample); plain "
+          f"{agc_plain_ms:.4f} ms at {AGC_CHECK}; the dependent chain's "
+          f"floor (an estimate) {AGC_FLOOR_NS:.0f} ns a sample")
+    del xl
+
+    # ---- 20d. the Costas receiver on the JAX test's channel, served
+    cfg = tstream.QpskRxStreamConfig(block=LINK_BLOCK)
+    M = cfg.syms_per_block
+    bits_c, pairs = link_channel(LINK_BLOCKS, LINK_BLOCK, LINK_SEED)
+    blocks = [torch.from_numpy(pairs[b * LINK_BLOCK:(b + 1) * LINK_BLOCK])
+              .to(dev) for b in range(LINK_BLOCKS)]
+    step = tstream.make_stream_fn(cfg)
+    calls = []      # each call's host ms inside the runner
+
+    def timed_step(state, x):
+        t0 = time.perf_counter()
+        r = step(state, x)
+        calls.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    def serve_link(out):
+        calls.clear()
+        torch.cuda.synchronize()
+        msps = StreamRunner(timed_step, tstream.init_state(cfg, dev),
+                            iter(blocks), sink=out.append, depth=SERVE_DEPTH,
+                            device=dev).run().msps
+        return msps, list(calls)
+
+    # the first pass holds the step's first calls ever; the rate is
+    # timed on a second pass over the same blocks
+    out = []
+    zero_counts()
+    first_msps, first_calls = serve_link(out)
+    served_counts = counts()
+    sym = np.concatenate(out[LINK_SKIP:])
+    errs_c, compared, rot, lag = best_align(sym[:, 0] + 1j * sym[:, 1],
+                                            bits_c, LINK_SKIP * M)
+    link_msps, link_calls = serve_link([])
+    st = tstream.init_state(cfg, dev)
+    enqueue = []
+    for b in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = step(st, blocks[b])
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = cuda_ms(lambda: step(st, blocks[5]))
+    print(f"Costas receiver served on {card} ({LINK_BLOCKS} blocks of "
+          f"{LINK_BLOCK}, depth {SERVE_DEPTH}, device-resident, copying "
+          f"sink, carrier step at block {LINK_STEP_BLOCK}): "
+          f"{link_msps:.4f} Msps, {1e3 * LINK_BLOCK / link_msps / 1e6:.4f} "
+          f"ms a block, a step call {float(np.median(link_calls)):.4f} ms "
+          f"(median) on the second pass; the first pass (the step's first "
+          f"calls) {first_msps:.4f} Msps, its step calls {first_calls[0]:.1f}"
+          f" ms first, then median {float(np.median(first_calls[1:])):.4f},"
+          f" max {max(first_calls[1:]):.1f}; "
+          f"{errs_c} bit errors over {compared} bits after {LINK_SKIP} "
+          f"acquisition blocks (rot {rot}, lag {lag}); host enqueue on an "
+          f"idle card {float(np.median(enqueue)):.4f} ms a block (median "
+          f"of 5); device {dev_ms:.4f} ms a block; launches in the first "
+          f"pass {json.dumps(served_counts)}")
+    if served_counts["costas_loop"] != LINK_BLOCKS:
+        fail(f"Costas receiver: {served_counts['costas_loop']} Costas "
+             f"launches in {LINK_BLOCKS} blocks")
+    if errs_c or compared <= 60000:
+        fail(f"Costas receiver: {errs_c} bit errors over {compared} bits")
+    profile_served(lambda: step(st, blocks[6]), card,
+                   "one Costas receiver block")
+    costas_launches = served_counts["costas_loop"]
+    agc_launches = served_counts["agc_scan"]
+    del blocks, out
+
+    # ---- 20e. the network loopback: the port's transmitter on the card
+    # -> TCP on 127.0.0.1 -> the Costas receiver on the card, both codecs
+    tcfg = tq.QpskTxConfig(bits_per_block=NET_BITS, dphase=TX_DPHASE,
+                           phase0=TX_PHASE0)
+    key, drawn = trand.source_init(NET_SEED, dev), []
+    for _ in range(NET_BLOCKS):
+        b, key = trand.random_bits_block(key, NET_BITS)
+        drawn.append(b)
+    tx_bits = torch.cat(drawn).cpu().numpy().astype(np.uint8)
+    net = {}
+    for codec in ("raw", "cbor"):
+        port = free_port()
+        ep = f"tcp://127.0.0.1:{port}"
+        got = []
+
+        def rx():
+            got.extend(qpsk_stream.receive_blocks(
+                ep, NET_BLOCKS, backend="tcp", codec=codec, timeout=120.0))
+
+        th = threading.Thread(target=rx, daemon=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        th.start()
+        sent = qpsk_stream.stream_blocks(ep, NET_BLOCKS, tcfg, seed=NET_SEED,
+                                         backend="tcp", codec=codec,
+                                         device=dev)
+        th.join(timeout=300)
+        if th.is_alive() or len(got) != NET_BLOCKS:
+            fail(f"network loopback ({codec}): {len(got)} of {NET_BLOCKS} "
+                 f"blocks received")
+        t_net = time.perf_counter() - t0
+        rx_out = []
+        zero_counts()
+        StreamRunner(step, tstream.init_state(cfg, dev),
+                     (np.stack([g.real, g.imag], -1) for g in got),
+                     sink=rx_out.append, depth=SERVE_DEPTH,
+                     device=dev).run()
+        c = counts()
+        t_all = time.perf_counter() - t0
+        sym = np.concatenate(rx_out[LINK_SKIP:])
+        e, m, rot, lag = best_align(sym[:, 0] + 1j * sym[:, 1], tx_bits,
+                                    LINK_SKIP * M)
+        net[codec] = {"samples": sent, "seconds": t_all,
+                      "transfer_seconds": t_net,
+                      "msps": sent / t_all / 1e6, "bit_errors": e,
+                      "bits": m, "rot": rot, "lag": lag,
+                      "costas_launches": c["costas_loop"]}
+        costas_launches += c["costas_loop"]
+        agc_launches += c["agc_scan"]
+        if e or m < 2 * (NET_BLOCKS - LINK_SKIP - 1) * M:
+            fail(f"network loopback ({codec}): {e} bit errors over {m}")
+        if c["costas_loop"] != NET_BLOCKS:
+            fail(f"network loopback ({codec}): {c['costas_loop']} Costas "
+                 f"launches")
+    print(f"network loopback on {card} (QPSK tx on the card, {NET_BITS} "
+          f"bits a block, dphase {tcfg.dphase}, phase0 {tcfg.phase0}, "
+          f"{NET_BLOCKS} blocks; TCP on 127.0.0.1; the Costas receiver on "
+          f"the card):", json.dumps(net))
+
+    # ---- 20f. est_lag=2 and the split steps at the fused step's width
+    blocks = []
+    for b in range(SERVE_WARMUP + SERVE_BLOCKS):
+        a = (QPSK_CFO * b * QPSK_N) % (2 * np.pi)
+        c_, s_ = float(np.cos(a)), float(np.sin(a))
+        blocks.append(((re * c_ - im * s_).contiguous(),
+                       (re * s_ + im * c_).contiguous()))
+    Mq = QPSK_N // 4
+    fast = tstream.make_stream_fast_fn(rcfg)
+    st_f = tstream.init_state_fast(rcfg, dev)
+    want = []
+    for r_, i_ in blocks[:3]:
+        y, st_f = fast(st_f, r_, i_)
+        want.append(y)
+    split = tstream.make_split_serving_step(rcfg)
+    got = []
+    zero_counts()
+    StreamRunner(split, tstream.init_state_fast(rcfg, dev), blocks[:3],
+                 sink=got.append, samples_of=lambda x: x[0].shape[0],
+                 depth=2, device=dev).run()
+    c_split = counts()
+    e_split = max(rel_err(torch.from_numpy(g).to(dev), w)
+                  for g, w in zip(got, want))
+    print(f"split serving step at {QPSK_N} on {card}: against the fast step "
+          f"{e_split:.3g} relative over 3 blocks (bound {TOL_SPLIT}); "
+          f"launches in the 3 blocks {json.dumps(c_split)}")
+    if e_split > TOL_SPLIT:
+        fail(f"split step vs fast: {e_split}")
+    if (c_split["qpsk_symbol_gemm_scalars"] != 3
+            or c_split["qpsk_panels"] != 3):
+        fail(f"split step launches {c_split}")
+    del want, got
+
+    lag2 = tstream.make_stream_fused_fn(rcfg, est_lag=2)
+    rates = {}
+    for name, fn, init in (
+            ("fused", lambda st, x: fused(st, *x), tstream.init_state_fast),
+            ("split", split, tstream.init_state_fast),
+            ("est_lag2", lambda st, x: lag2(st, *x),
+             tstream.init_state_fused2)):
+        outs = []
+
+        def serve(n, keep):
+            torch.cuda.synchronize()
+            r = StreamRunner(fn, init(rcfg, dev), blocks[:n],
+                             sink=outs.append if keep else None,
+                             samples_of=lambda x: x[0].shape[0],
+                             depth=SERVE_DEPTH, device=dev)
+            return r.run().msps
+
+        serve(SERVE_WARMUP, False)
+        zero_counts()
+        rates[name] = serve(SERVE_BLOCKS, False)
+        per_block = {k: v / SERVE_BLOCKS for k, v in counts().items()}
+        print(f"{name} step served on {card} ({SERVE_BLOCKS} blocks of "
+              f"{QPSK_N}, depth {SERVE_DEPTH}, device-resident, no sink): "
+              f"{rates[name]:.1f} Msps; launches a block "
+              f"{json.dumps(per_block)}")
+        if name == "est_lag2":
+            serve(4, True)
+            sym = torch.from_numpy(np.concatenate(outs[2:], axis=1)).to(dev)
+            rot_v, lag_v, _ = qpsk_align(sym, 2 * Mq, bits)
+            ber = qpsk_bit_errors(sym, 2 * Mq, bits, rot_v, lag_v)
+            print(f"est_lag=2 at {QPSK_N} on {card}: {ber} bit errors over "
+                  f"{2 * sym.shape[1]} bits after its two warm-up blocks "
+                  f"(lag {lag_v}, rot {rot_v})")
+            if ber:
+                fail(f"est_lag=2: {ber} bit errors")
+            if per_block["qpsk_symbol_gemm_scalars"] != 1:
+                fail(f"est_lag=2 launches {per_block}")
+    del blocks, re, im
+
+    nbytes_c = 16 * COSTAS_CHECK[0] + 16
+    nbytes_a = 16 * AGC_CHECK + 8
+    rows.append(kernel_row(
+        "costas_loop", "recurrence.cu",
+        "comms_tpu/ops/demodulation.py:143 (lax.scan; no Pallas kernel)",
+        costas_launches, max(errs.values()), costas_ms, costas_plain_ms,
+        nbytes_c, 25 * COSTAS_CHECK[0]))
+    rows.append(kernel_row(
+        "agc_scan", "recurrence.cu",
+        "comms_tpu/ops/agc.py:43 (lax.scan; no Pallas kernel)",
+        agc_launches, agc_err,
+        agc_ms, agc_plain_ms, nbytes_a, 12 * AGC_CHECK))
+    return rows
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that the OS has just handed out."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> None:
     import torch
 
@@ -3316,7 +3790,8 @@ def main() -> None:
                                  "psd_partial_kernel", "psd_reduce_kernel",
                                  "stage_a_kernel", "stage_b_psd_kernel",
                                  "stage_b_reduce_kernel",
-                                 "stage_b_fft_kernel", "halo_ring_kernel"))
+                                 "stage_b_fft_kernel", "halo_ring_kernel",
+                                 "costas_loop_kernel", "agc_scan_kernel"))
 
     rows = [fm_receiver_phases(dev, card)]
     rows += band_monitor_phases(dev, card)
@@ -3325,6 +3800,7 @@ def main() -> None:
     rows += sharded_phases(dev, card)
     transmit_phases(dev, card)
     rows += runtime_phases(dev, card)
+    rows += qpsk_link_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

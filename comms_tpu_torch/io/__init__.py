@@ -1,1 +1,2 @@
-"""File I/O: ``from comms_tpu_torch.io import raw_iq``."""
+"""I/O: raw IQ files (``raw_iq``), the socket transport (``net``) and its
+CBOR codec (``cbor``)."""

@@ -13,7 +13,11 @@ kernel) is kept beside the library as ``<library>.log``.
 
 :func:`device_constant` and :func:`device_index` keep the kernels'
 coefficient tables and the estimate chains' index arrays on the card,
-copied once per content and device.
+copied once per content and device.  :func:`per_slice_vmap` lets
+``torch.func.vmap`` lift a kernel launch registered as a
+``torch.library.custom_op``: one launch a slice of the batch axis;
+:func:`per_stream` wraps a stream step so that vmap runs it once a
+stream.
 
 ``--use_fast_math`` is deliberately absent: it flushes denormals and
 approximates division, and the FM kernel's atan2 depends on both.
@@ -33,9 +37,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
+from torch._C._functorch import is_batchedtensor
 
 __all__ = ["load", "library_path", "nvcc_path", "device_constant",
-           "device_index", "BUILD_DIR", "CSRC_DIR"]
+           "device_index", "per_slice_vmap", "per_stream", "BUILD_DIR",
+           "CSRC_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -202,6 +209,20 @@ def _bind(lib) -> None:
         i32, i32, ptr,             # D's tile width, rows per block, n2 table
         ptr, ptr, ptr,             # yr, yi, cudaStream_t
     ]
+    lib.costas_loop_launch.restype = i32
+    lib.costas_loop_launch.argtypes = [
+        ptr, ptr, i64, i64,        # xr, xi, their element stride, steps
+        ptr, ptr, i32, f32, f32,   # phase, freq (device), order, alpha, beta
+        ptr, ptr, i64,             # yr, yi, their element stride
+        ptr, ptr, ptr,             # phase out, freq out, cudaStream_t
+    ]
+    lib.agc_scan_launch.restype = i32
+    lib.agc_scan_launch.argtypes = [
+        ptr, ptr, i64, i64,        # xr, xi, their element stride, steps
+        ptr, f32, f32,             # gain (device), target, rate
+        ptr, ptr, i64,             # yr, yi, their element stride
+        ptr, ptr,                  # gain out, cudaStream_t
+    ]
     lib.halo_ring_max_pairs.restype = i32
     lib.halo_ring_max_pairs.argtypes = []
     lib.halo_ring_launch.restype = i32
@@ -259,3 +280,72 @@ def _cached_constant(raw: bytes, shape: tuple, np_dtype: str,
                      device: str) -> torch.Tensor:
     a = np.frombuffer(raw, dtype=np_dtype).reshape(shape)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def _per_slice(call, info, in_dims, args):
+    """``call`` once per slice of the batch axis (contiguous slices of the
+    batched tensors, the other arguments as they are), the outputs
+    stacked along a new leading axis: ``(outputs, out_dims)``."""
+    outs = [call(*(a.select(d, b).contiguous()
+                   if isinstance(a, torch.Tensor) and d is not None else a
+                   for a, d in zip(args, in_dims)))
+            for b in range(info.batch_size)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs), 0
+    return tuple(torch.stack(t) for t in zip(*outs)), (0,) * len(outs[0])
+
+
+def per_slice_vmap(op) -> None:
+    """Register a ``torch.func.vmap`` rule for the custom op ``op`` (a
+    kernel launch, which reads data pointers and so cannot see a batched
+    tensor): the op runs once per slice of the batch axis and its outputs
+    are stacked.  Each stream gets its own launch, so a batched call
+    equals a loop over the streams of the op's calls."""
+    torch.library.register_vmap(
+        op, lambda info, in_dims, *args: _per_slice(op, info, in_dims, args))
+
+
+class _PerStream(torch.autograd.Function):
+    """``fn(*args)``; under ``torch.func.vmap``, once per slice of the
+    batch axis, the outputs stacked (:func:`per_stream`)."""
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *args):
+        return _per_slice(lambda *a: _PerStream.apply(fn, *a), info,
+                          in_dims[1:], args)
+
+
+def per_stream(step):
+    """``step`` (tensors, or dicts, tuples and lists of them, in and out)
+    as it is, except under ``torch.func.vmap``: there it runs once a
+    stream and its outputs are stacked.  For a stream step whose sums and
+    small products would round otherwise on batched tensors, so that the
+    vmapped step equals a loop over its streams bit for bit.  Outside
+    vmap (no argument is a batched tensor) the wrapper calls ``step``
+    directly."""
+    @functools.wraps(step)
+    def run(*args):
+        leaves, spec = pytree.tree_flatten(args)
+        if not any(isinstance(t, torch.Tensor) and is_batchedtensor(t)
+                   for t in leaves):
+            return step(*args)
+        out_spec = []
+
+        def flat(*ls):
+            out, s = pytree.tree_flatten(
+                step(*pytree.tree_unflatten(list(ls), spec)))
+            out_spec.append(s)
+            return tuple(out)
+
+        out = _PerStream.apply(flat, *leaves)
+        return pytree.tree_unflatten(list(out), out_spec[-1])
+
+    return run

@@ -39,8 +39,13 @@ versions for CPU tensors; any other device raises.  ``launches`` counts,
 per entry name, the calls that launched kernels (a symbol entry with
 panels launches a symbol and two panel kernels and counts once), and
 under ``qpsk_symbols`` the symbol kernel's own launches, whichever entry
-made them.  The symbol kernel walks tiles of symbols in persistent
-blocks, a partition fixed by the shape (:func:`partition`).  The
+made them.  The launches are ``torch.library`` custom ops
+(``comms_tpu_torch::qpsk_symbols`` and ``::qpsk_panels``) with a
+per-slice vmap rule (``_build.per_slice_vmap``): ``torch.func.vmap`` of
+a stream step that reaches them runs one launch a stream, and each
+launch counts, as a loop over the streams would.  The symbol kernel
+walks tiles of symbols in persistent blocks, a partition fixed by the
+shape (:func:`partition`).  The
 taps of ``_scalars`` are built with the accurate ``sincosf``, so the
 port does not carry the TPU kernel's ~3e-3 in-kernel tap error.
 """
@@ -167,44 +172,62 @@ def partition(n: int):
     return threads, tiles, max(1, min(tiles, _RUN_BLOCKS))
 
 
-def _launch_symbols(re, im, ctx, md, taps=None, ws=None, phase0=0.0,
-                    scalars=None):
+@torch.library.custom_op(
+    "comms_tpu_torch::qpsk_symbols", mutates_args=(), device_types="cuda",
+    schema="(Tensor re, Tensor im, Tensor? ctx_re, Tensor? ctx_im, int md, "
+           "Tensor? fr, Tensor? fi, Tensor? params, Tensor? rows, "
+           "Tensor? scal_f, Tensor? scal_i, str[] count) -> (Tensor, Tensor)")
+def _symbols_op(re, im, ctx_re, ctx_im, md, fr, fi, params, rows, scal_f,
+                scal_i, count):
+    """One launch of the symbol kernel: the traced-taps form (``fr, fi,
+    params = [ws, phase0]``) or the ``_scalars`` form (``rows, scal_f =
+    [w, lag[4], phase0], scal_i = [shift2]``).  Adds one to ``launches``
+    under ``qpsk_symbols`` and under each name in ``count``."""
     lib = _build.load()
     dev = re.device
     n = re.shape[0]
     yr = torch.empty(n // SPS, dtype=torch.float32, device=dev)
     yi = torch.empty(n // SPS, dtype=torch.float32, device=dev)
-    if taps is not None:
-        fr, fi = (t.to(device=dev, dtype=torch.float32).contiguous()
-                  for t in taps)
-        params = torch.cat([_scalar(ws, dev), _scalar(phase0, dev)])
-        ptrs = (fr.data_ptr(), fi.data_ptr(), params.data_ptr(),
-                None, None, None)
-    else:
-        mf_rows, w, lag, shift2 = scalars
-        rows = _build.device_constant(mf_rows, dev)
-        scal_f = torch.cat([_scalar(w, dev),
-                            lag.to(device=dev, dtype=torch.float32)
-                            .reshape(4), _scalar(phase0, dev)])
-        scal_i = (shift2.to(device=dev, dtype=torch.int32).reshape(1)
-                  if isinstance(shift2, torch.Tensor) else
-                  torch.full((1,), int(shift2), dtype=torch.int32,
-                             device=dev))
-        ptrs = (None, None, None, rows.data_ptr(), scal_f.data_ptr(),
-                scal_i.data_ptr())
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     threads, _, blocks = partition(n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.qpsk_sym_launch(
-            re.data_ptr(), im.data_ptr(),
-            ctx[0].data_ptr() if ctx is not None else None,
-            ctx[1].data_ptr() if ctx is not None else None, md,
-            *ptrs, n, threads, blocks, yr.data_ptr(), yi.data_ptr(), stream)
+            re.data_ptr(), im.data_ptr(), ptr(ctx_re), ptr(ctx_im), md,
+            ptr(fr), ptr(fi), ptr(params), ptr(rows), ptr(scal_f),
+            ptr(scal_i), n, threads, blocks, yr.data_ptr(), yi.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"QPSK symbol kernel launch failed: CUDA "
                            f"error {rc}")
-    launches["qpsk_symbols"] += 1
+    for k in ("qpsk_symbols", *count):
+        launches[k] += 1
     return yr, yi
+
+
+def _launch_symbols(re, im, ctx, md, taps=None, ws=None, phase0=0.0,
+                    scalars=None, count=()):
+    dev = re.device
+    cr, ci = ctx if ctx is not None else (None, None)
+    if taps is not None:
+        fr, fi = (t.to(device=dev, dtype=torch.float32).contiguous()
+                  for t in taps)
+        params = torch.cat([_scalar(ws, dev), _scalar(phase0, dev)])
+        return _symbols_op(re, im, cr, ci, md, fr, fi, params, None, None,
+                           None, list(count))
+    mf_rows, w, lag, shift2 = scalars
+    rows = _build.device_constant(mf_rows, dev)
+    scal_f = torch.cat([_scalar(w, dev),
+                        lag.to(device=dev, dtype=torch.float32).reshape(4),
+                        _scalar(phase0, dev)])
+    scal_i = (shift2.to(device=dev, dtype=torch.int32).reshape(1)
+              if isinstance(shift2, torch.Tensor) else
+              torch.full((1,), int(shift2), dtype=torch.int32, device=dev))
+    return _symbols_op(re, im, cr, ci, md, None, None, None, rows, scal_f,
+                       scal_i, list(count))
 
 
 def panel_chunking(n: int, hw: int):
@@ -217,7 +240,12 @@ def panel_chunking(n: int, hw: int):
     return rows, -(-R // rows)
 
 
-def _launch_panels(re, im, hw: int):
+@torch.library.custom_op(
+    "comms_tpu_torch::qpsk_panels", mutates_args=(), device_types="cuda",
+    schema="(Tensor re, Tensor im, int hw, str[] count) -> Tensor")
+def _panels_op(re, im, hw, count):
+    """One call of the panel kernels: the panels ``[4, 128, 128 + 2hw]``.
+    Adds one to ``launches`` under each name in ``count``."""
     lib = _build.load()
     dev = re.device
     n = re.shape[0]
@@ -236,7 +264,19 @@ def _launch_panels(re, im, hw: int):
     if rc != 0:
         raise RuntimeError(f"QPSK panel kernel launch failed: CUDA "
                            f"error {rc}")
-    return panels[0], panels[1], panels[2], panels[3], meta
+    for k in count:
+        launches[k] += 1
+    return panels
+
+
+_build.per_slice_vmap(_symbols_op)
+_build.per_slice_vmap(_panels_op)
+
+
+def _launch_panels(re, im, hw: int, count=()):
+    panels = _panels_op(re, im, hw, list(count))
+    return (panels[0], panels[1], panels[2], panels[3],
+            _panel_meta(int(re.shape[0]), hw))
 
 
 def _pad_to_quad(fr, fi, ctx):
@@ -257,7 +297,8 @@ def _pad_to_quad(fr, fi, ctx):
 # ---- the entries
 
 def qpsk_symbol_gemm(re, im, fr, fi, ws, phase0=0.0, ctx=None,
-                     panels_hw: int = 0, _sym_on: bool = True):
+                     panels_hw: int = 0, _sym_on: bool = True,
+                     _panels_count=("qpsk_symbol_gemm",)):
     """Fused symbol path on float32 planes.
 
     Args:
@@ -285,13 +326,13 @@ def qpsk_symbol_gemm(re, im, fr, fi, ws, phase0=0.0, ctx=None,
             return panels
         sr, si = qpsk_symbol_plain(re, im, fr, fi, ws, phase0, ctx)
         return (sr, si) if not hw else (sr, si, panels)
-    panels = _launch_panels(re, im, hw) if hw else None
-    launches["qpsk_symbol_gemm"] += 1
     if not _sym_on:
-        return panels
+        return _launch_panels(re, im, hw, _panels_count)
+    panels = _launch_panels(re, im, hw) if hw else None
     fr4, fi4, ctx4 = _pad_to_quad(fr, fi, ctx)
     sr, si = _launch_symbols(re, im, ctx4, int(fr4.shape[0]),
-                             taps=(fr4, fi4), ws=ws, phase0=phase0)
+                             taps=(fr4, fi4), ws=ws, phase0=phase0,
+                             count=("qpsk_symbol_gemm",))
     return (sr, si) if not hw else (sr, si, panels)
 
 
@@ -328,9 +369,9 @@ def qpsk_symbol_gemm_scalars(re, im, mf_taps, w, lag, shift2, phase0=0.0,
             return sr, si
         return sr, si, qpsk_panels_plain(re, im, hw)
     sr, si = _launch_symbols(re, im, ctx, md, phase0=phase0,
-                             scalars=(_mf_shift_rows(mf), w, lag, shift2))
+                             scalars=(_mf_shift_rows(mf), w, lag, shift2),
+                             count=("qpsk_symbol_gemm_scalars",))
     panels = _launch_panels(re, im, hw) if hw else None
-    launches["qpsk_symbol_gemm_scalars"] += 1
     return (sr, si) if not hw else (sr, si, panels)
 
 
@@ -342,11 +383,10 @@ def qpsk_panels(re, im, panels_hw: int):
     z = torch.zeros(md, dtype=torch.float32, device=re.device)
     if int(panels_hw) <= 0:
         raise ValueError(f"panels_hw must be in (0, 64], got {panels_hw}")
-    out = qpsk_symbol_gemm(re, im, z, z, 0.0, panels_hw=panels_hw,
-                           _sym_on=False)
-    if re.device.type == "cuda":
-        launches["qpsk_panels"] += 1
-    return out
+    return qpsk_symbol_gemm(re, im, z, z, 0.0, panels_hw=panels_hw,
+                            _sym_on=False,
+                            _panels_count=("qpsk_symbol_gemm",
+                                           "qpsk_panels"))
 
 
 # ---- the plain versions

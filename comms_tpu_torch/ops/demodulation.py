@@ -1,12 +1,17 @@
 """FM quadrature demodulation and the QPSK receiver's estimators.
 
-Counterpart of :mod:`comms_tpu.ops.demodulation` without the Costas
-loop and the phase estimators (they come with the Costas stream model):
+Counterpart of :mod:`comms_tpu.ops.demodulation`:
 
 * FM demod ``y[n] = arg(x[n] * conj(x[n-1]))`` with ``prev`` carried
   across blocks (zero-initialized; arg(0) = 0), and the polynomial atan2
   that the fused FM kernel shares;
 * the carrier-offset estimate ``arg(sum(x[1:] * conj(x[:-1])))``;
+* the PSK/QAM phase estimates ``arg(sum(x^m))/m`` and
+  ``arg(sum(-x^4))/4`` (Mengali 5.7.4/5.7.5), the powers as XLA's
+  ``integer_pow`` expands them;
+* :func:`costas_loop_block`, the decision-directed Costas loop, on the
+  hand-written recurrence kernel (``kernels.recurrence``) for CUDA
+  tensors and its plain version for CPU tensors;
 * :class:`TimingEstimator`, the feedforward NDA ML timing estimate
   (Mengali 8.4) as correlation panels, whose products are float32
   ``torch.matmul`` (TF32 stays off; the JAX package leaves them to XLA
@@ -28,10 +33,12 @@ import numpy as np
 import torch
 
 from comms_tpu_torch.kernels import _build
+from comms_tpu_torch.kernels import recurrence as _rec
 from comms_tpu_torch.ops import taps as _taps
 
 __all__ = ["fast_atan2", "fast_angle", "fm_demod_init", "fm_demod_block",
            "frequency_offset_estimate", "frequency_offset_estimate_planar",
+           "psk_phase_estimate", "qam_phase_estimate", "costas_loop_block",
            "TimingEstimator", "corr_panels"]
 
 
@@ -103,6 +110,48 @@ def frequency_offset_estimate_planar(re, im):
     ar = torch.sum(re[1:] * re[:-1] + im[1:] * im[:-1])
     ai = torch.sum(im[1:] * re[:-1] - re[1:] * im[:-1])
     return torch.atan2(ai, ar)
+
+
+def psk_phase_estimate(symbols, m: int):
+    """Mengali 5.7.4: ``arg(sum(x^m)) / m`` for M-PSK symbols (complex)."""
+    pr, pi = _rec.complex_ipow(symbols.real, symbols.imag, m)
+    return torch.atan2(torch.sum(pi), torch.sum(pr)) / float(m)
+
+
+def qam_phase_estimate(symbols):
+    """Mengali 5.7.5: ``arg(sum(-x^4)) / 4`` for square QAM (complex)."""
+    pr, pi = _rec.complex_ipow(symbols.real, symbols.imag, 4)
+    return torch.atan2(torch.sum(-pi), torch.sum(-pr)) / 4.0
+
+
+def costas_loop_block(symbols, state, alpha: float, beta: float,
+                      order: int = 4):
+    """Decision-directed Costas carrier-tracking loop over one block.
+
+    A second-order loop whose M-th-power phase detector (with the -x^M
+    sign, so the error zero sits at the constellation points) drives the
+    NCO: per symbol ``c = s e^{-j ph}``, ``err = arg(-c^M) / M``, ``fr +=
+    beta err``, ``ph = ph + fr + alpha err``.  The recurrence has no
+    parallel form: on CUDA tensors one launch of the recurrence kernel
+    walks the block, on CPU tensors its plain version does.
+
+    Args:
+      symbols: [N] complex64 symbol-rate input.
+      state: ``(phase, freq)`` float32 0-d tensors on the symbols'
+        device (start ``(0, 0)``).
+      alpha, beta: proportional / integrator gains.
+      order: constellation order (4 = QPSK).
+
+    Returns ``(corrected, (phase, freq))``.
+    """
+    if symbols.dtype != torch.complex64:
+        raise ValueError(f"symbols must be complex64, got {symbols.dtype}")
+    v = torch.view_as_real(symbols)
+    ph, fr = (torch.as_tensor(s, dtype=torch.float32, device=symbols.device)
+              for s in state)
+    yr, yi, ph, fr = _rec.costas_loop(v[:, 0], v[:, 1], ph, fr, alpha, beta,
+                                      order)
+    return torch.complex(yr, yi), (ph, fr)
 
 
 def corr_panels(re, im, hw: int):

@@ -38,8 +38,11 @@ from comms_tpu_torch.kernels import _build
 
 __all__ = [
     "init_ctx",
+    "ctx_from_reference_state",
     "banded_tap_matrix",
     "fir_block",
+    "fir_apply",
+    "fir_decimate_block",
     "fir_apply_planar",
     "decimating_branch_taps",
     "fir_decimate_poly",
@@ -58,6 +61,15 @@ _DEFAULT_PHASES = 128
 def init_ctx(num_taps: int, dtype=torch.complex64, device="cuda"):
     """Zero carried context (the reference's default zero state)."""
     return torch.zeros(max(num_taps - 1, 0), dtype=dtype, device=device)
+
+
+def ctx_from_reference_state(state, dtype=torch.complex64, device="cuda"):
+    """A reference-style state vector (most-recent-first, length T, its
+    last element unused: the reference shifts it out before it ever
+    contributes) as carried context (oldest-first, T-1) on ``device``."""
+    state = np.asarray(state)
+    return torch.as_tensor(np.ascontiguousarray(state[:len(state) - 1][::-1]),
+                           dtype=dtype, device=device)
 
 
 def banded_tap_matrix(taps, phases: int = _DEFAULT_PHASES) -> np.ndarray:
@@ -159,6 +171,28 @@ def fir_block(x, taps, ctx, phases: int = _DEFAULT_PHASES):
     Y = _banded_product(xpad, B,
                         lambda v: _window_rows(v, R, P, T))   # [R, P]
     return Y.reshape(R * P)[:N], new_ctx
+
+
+def fir_apply(x, taps, phases: int = _DEFAULT_PHASES):
+    """Stateless FIR with zero initial context (one-shot convenience):
+    ``taps`` as in :func:`fir_block`."""
+    t = taps if isinstance(taps, torch.Tensor) else np.asarray(taps)
+    T = t.shape[0] if t.ndim == 1 else t.shape[0] - t.shape[1] + 1
+    y, _ = fir_block(x, taps, init_ctx(T, dtype=x.dtype, device=x.device),
+                     phases=phases)
+    return y
+
+
+def fir_decimate_block(x, taps, ctx, rate: int,
+                       phases: int = _DEFAULT_PHASES):
+    """FIR then keep every ``rate``-th output, the phase reset each block
+    (the reference's DecimateNode, resample_node.rs:53-65).  Returns
+    ``(y, new_ctx)``.  The reference's convenience form: the polyphase
+    :func:`fir_decimate_poly` is the one for the hot path."""
+    y, new_ctx = fir_block(x, taps, ctx, phases=phases)
+    if rate in (0, 1):
+        return y, new_ctx
+    return y[::rate], new_ctx
 
 
 def fir_apply_planar(xr, xi, B, phases: int = _DEFAULT_PHASES):

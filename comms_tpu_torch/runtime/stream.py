@@ -169,9 +169,16 @@ def _lifted_step(block_fn: Callable, B: int, mode: str) -> Callable:
             except RuntimeError as e:
                 raise ValueError(
                     "torch.func.vmap cannot run this block function over "
-                    "the stream axis (a step that launches a CUDA kernel "
-                    "through ctypes, or reads a value on the host, cannot "
-                    "be vmapped); use mode='unroll'") from e
+                    "the stream axis: a step that reads a value on the "
+                    "host, or launches a CUDA kernel through ctypes outside "
+                    "a custom op with a vmap rule (the FM chain, "
+                    "decimating-FIR, channelizer and band-monitor kernels "
+                    "K1, K2, K8, K9, and K4 on K2's kernel), cannot be "
+                    "vmapped.  The JAX package has the same "
+                    "limit for those kernels: their Pallas operands live in "
+                    "memory_space=ANY, which jax.vmap cannot lift "
+                    "(comms_tpu/runtime/stream.py, BatchedStreamRunner); "
+                    "use mode='unroll'") from e
         return lifted
     raise ValueError(
         f"mode must be 'unroll', 'map' or 'vmap', got {mode!r}")
@@ -190,8 +197,13 @@ class BatchedStreamRunner(StreamRunner):
       is the tuple of the B per-stream states.
     * ``mode="vmap"``: ``torch.func.vmap`` of the step over stacked
       states (every state leaf must be a tensor).  Batched products may
-      round otherwise; a step that launches a ctypes kernel cannot be
-      vmapped and raises a ValueError that says so.
+      round otherwise.  The QPSK symbol and panel kernels (K5) and the
+      recurrence kernels are custom ops whose vmap rule launches them
+      once a stream, so the QPSK stream steps and the Costas receiver
+      lift; a step that launches another ctypes kernel (K1, K2 and K4
+      on it, K8, K9: as in the JAX package, whose Pallas kernels on
+      ``memory_space=ANY`` operands cannot be vmapped) raises a
+      ValueError that says so.
 
     The runner keeps :class:`StreamRunner`'s loop, so the stream's final
     drain is timed.

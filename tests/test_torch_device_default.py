@@ -20,6 +20,8 @@ from comms_tpu_torch.models import fm_receiver as tfm
 from comms_tpu_torch.models import qpsk_rx as trx
 from comms_tpu_torch.models import qpsk_tx as tqt
 from comms_tpu_torch.models import qpsk_rx_stream as tstream
+from comms_tpu_torch.models import qpsk_stream as tqstream
+from comms_tpu_torch.ops import agc as tagc
 from comms_tpu_torch.ops import channelizer as tchan
 from comms_tpu_torch.ops import demodulation as tdem
 from comms_tpu_torch.ops import fir as tfir
@@ -135,6 +137,27 @@ ENTRY_POINTS = {
             {k: np.zeros(2) for k in ("ctx_re", "ctx_im", "omega", "theta",
                                       "lag", "shift2", "fphase", "pfine",
                                       "warm")})),
+    "qpsk_rx_stream.init_state": (
+        tstream.init_state,
+        lambda _: tstream.init_state(tstream.QpskRxStreamConfig(block=64))),
+    "qpsk_rx_stream.init_state_fused2": (
+        tstream.init_state_fused2,
+        lambda _: tstream.init_state_fused2(trx.QpskRxConfig())),
+    "qpsk_rx_stream.stream_state_from_jax": (
+        tstream.stream_state_from_jax,
+        lambda _: tstream.stream_state_from_jax(
+            {**{k: np.zeros(2) for k in ("mf_ctx", "interp_ctx", "theta",
+                                         "omega", "tau", "warm")},
+             "costas": (np.zeros(()), np.zeros(()))})),
+    "qpsk_stream.stream_blocks": (
+        tqstream.stream_blocks,
+        lambda _: tqstream.stream_blocks(
+            "tcp://127.0.0.1:1", 1, tqt.QpskTxConfig(bits_per_block=128),
+            backend="tcp")),
+    "ops.agc.agc_init": (tagc.agc_init, lambda _: tagc.agc_init()),
+    "ops.fir.ctx_from_reference_state": (
+        tfir.ctx_from_reference_state,
+        lambda _: tfir.ctx_from_reference_state(np.ones(4))),
     "fm_chain.zero_ctx": (TK.zero_ctx, lambda _: TK.zero_ctx()),
     "fir.planar_ctx_zero": (TFIR.planar_ctx_zero,
                             lambda _: TFIR.planar_ctx_zero()),

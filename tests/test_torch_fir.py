@@ -118,3 +118,83 @@ def test_streaming_three_blocks_equals_one_shot(kind):
         outs.append(y)
     np.testing.assert_allclose(torch.cat(outs).numpy(), once.numpy(),
                                rtol=0, atol=1e-12)
+
+
+def _oracle_batch_fir(x, taps, state):
+    """The reference's direct form (tests/test_fir.py): state
+    rotate_right(1); state[0] = x; dot."""
+    state = list(state)
+    out = []
+    for s in x:
+        state = [state[-1]] + state[:-1]
+        state[0] = s
+        out.append(sum(t * v for t, v in zip(taps, state)))
+    return np.array(out)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128,
+                                   np.float64])
+def test_ctx_from_reference_state_equals_jax(dtype):
+    ref_state = np.array([1.0, 0.5, 0.25, 0.125], dtype=dtype)
+    tdt = torch.from_numpy(np.zeros(1, dtype)).dtype
+    got = tfir.ctx_from_reference_state(ref_state, dtype=tdt, device="cpu")
+    want = np.asarray(jfir.ctx_from_reference_state(ref_state,
+                                                    dtype=jnp.dtype(dtype)))
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.numpy(), want)
+    # tests/test_fir.py:46 on the port: the fir.rs doc example from a
+    # reference state, against the direct form
+    taps = np.array([0.2, 0.6, 0.6, 0.2], dtype=np.complex128)
+    x = np.cos(np.arange(20)).astype(np.complex128)
+    ctx = tfir.ctx_from_reference_state(
+        np.array([1.0, 0.5, 0.25, 0.125], np.complex128),
+        dtype=torch.complex128, device="cpu")
+    y, _ = tfir.fir_block(torch.from_numpy(x), taps, ctx)
+    np.testing.assert_allclose(
+        y.numpy(), _oracle_batch_fir(x, taps, [1.0, 0.5, 0.25, 0.125]),
+        atol=1e-12)
+
+
+@pytest.mark.parametrize("real", [np.float32, np.float64])
+@pytest.mark.parametrize("T", [1, 63])
+def test_fir_apply_matches_jax(real, T):
+    rng = np.random.default_rng(T)
+    taps = rng.normal(size=T).astype(real)
+    x = rng.normal(size=500).astype(real)
+    got = tfir.fir_apply(torch.from_numpy(x), taps)
+    want = np.asarray(jfir.fir_apply(jnp.asarray(x), taps))
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL[real], rtol=0)
+    if real == np.float64:
+        # tests/test_fir.py:77 on the port: against the direct form
+        np.testing.assert_allclose(
+            got.numpy(), _oracle_batch_fir(x, taps, np.zeros(T)),
+            atol=1e-10)
+    # a precomputed band matrix gives the same output
+    got_b = tfir.fir_apply(torch.from_numpy(x), tfir.banded_tap_matrix(taps))
+    np.testing.assert_array_equal(got_b.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("rate", [0, 1, 3, 5])
+@pytest.mark.parametrize("complex_", [False, True])
+def test_fir_decimate_block_matches_jax(rate, complex_):
+    rng = np.random.default_rng(2 + rate)
+    taps = rng.normal(size=17)
+    x = _signal(rng, 300, np.float64, complex_)
+    jdt = jnp.complex128 if complex_ else jnp.float64
+    tdt = torch.complex128 if complex_ else torch.float64
+    yj, cj = jfir.fir_decimate_block(jnp.asarray(x), taps,
+                                     jfir.init_ctx(17, dtype=jdt), rate=rate)
+    ctx = tfir.init_ctx(17, dtype=tdt, device="cpu")
+    y1, c1 = tfir.fir_decimate_block(torch.from_numpy(x[:150]), taps, ctx,
+                                     rate)
+    y2, c2 = tfir.fir_decimate_block(torch.from_numpy(x[150:]), taps, c1,
+                                     rate)
+    y, c = tfir.fir_decimate_block(torch.from_numpy(x), taps, ctx, rate)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=1e-10)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj), atol=0)
+    # the phase resets each block (DecimateNode); 150 is a multiple of
+    # every rate here, so two half blocks equal one block
+    np.testing.assert_allclose(torch.cat([y1, y2]).numpy(), y.numpy(),
+                               atol=1e-12)
+    np.testing.assert_array_equal(c2.numpy(), c.numpy())

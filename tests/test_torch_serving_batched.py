@@ -8,7 +8,10 @@ streams served a round at a time.
   (the port's FM step against JAX's, tests/test_torch_fm_receiver.py);
 * ``vmap``: within 1e-5 of separate runs (the JAX test's bound) and
   streams independent bit for bit; a step that reads a tensor's data
-  pointer (as every ctypes kernel launch does) raises a ValueError;
+  pointer (as a ctypes kernel launch outside a custom op does) raises a
+  ValueError; the QPSK fast step under vmap equals ``unroll`` bit for
+  bit (on the card its K5 launches are custom ops with a per-slice vmap
+  rule, tests/test_torch_qpsk_link_cuda.py);
 * the stream's final drain is timed, and the default sample count is B
   times the block."""
 
@@ -188,6 +191,38 @@ def test_batched_qpsk_fast_matches_separate_and_decodes():
         (rot, lag), errs, m = trx.resolve_ambiguity(
             cand[0] + 1j * cand[1], ref, search=1500, max_lag=16)
         assert m >= 2048 and errs == 0, (s, rot, lag, errs, m)
+
+
+def test_batched_qpsk_fast_vmap_equals_unroll():
+    # 2 streams of 4 blocks of 4096 samples: vmap lifts the fast step
+    # (plain PyTorch on the CPU) and gives unroll's outputs and states
+    Bs, nblk = 2, 4
+    streams = [_qpsk_stream(3, 0.006, 0.8, 8192),
+               _qpsk_stream(7, -0.004, 2.1, 8192)]
+    cfg = trx.QpskRxConfig()
+    step = tqs.make_stream_fast_fn(cfg)
+
+    def wrapped(state, x):
+        return step(state, x[0], x[1])
+
+    N = len(streams[0][0]) // nblk
+    srcs = [[(seg.real.astype(np.float32), seg.imag.astype(np.float32))
+             for seg in (xc[b * N:(b + 1) * N] for b in range(nblk))]
+            for xc, _ in streams]
+    got = {}
+    for mode in ("unroll", "vmap"):
+        outs = [[] for _ in range(Bs)]
+        r = BatchedStreamRunner(
+            wrapped, [tqs.init_state_fast(cfg, CPU) for _ in range(Bs)],
+            sources=srcs, sinks=[outs[b].append for b in range(Bs)],
+            depth=2, mode=mode, device=CPU)
+        r.run()
+        got[mode] = (outs, r.stream_states())
+    for s in range(Bs):
+        for b in range(nblk):
+            np.testing.assert_array_equal(got["vmap"][0][s][b],
+                                          got["unroll"][0][s][b])
+        _leaves_equal(got["vmap"][1][s], got["unroll"][1][s])
 
 
 @pytest.mark.parametrize("mode", ["unroll", "vmap"])

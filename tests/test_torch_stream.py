@@ -135,6 +135,8 @@ def test_package_imports_no_jax():
                  "ops.spectrum", "ops.random", "ops.modulation",
                  "ops.pulse", "ops.prns", "ops.txshape",
                  "models.bpsk_tx", "models.qpsk_tx", "io.raw_iq",
+                 "errors", "io.cbor", "io.net", "models.qpsk_stream",
+                 "ops.agc", "kernels.recurrence",
                  "ops.resample", "runtime.block", "runtime.pipeline",
                  "runtime.graph", "runtime.checkpoint", "runtime.boundary",
                  "runtime.metrics", "runtime.stream", "runtime._tree",
