@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the FM broadcast
 receiver, the wideband FM band monitor, the QPSK receiver, FFT and Welch
 spectrum monitoring, the sharded layer on an 8-shard mesh of the card,
-and the BPSK and QPSK transmitters.
+the BPSK and QPSK transmitters, the QPSK link, and the file edges (the
+native block reader, audio, the file-replay radio and the examples).
 
     python3 chip_smoke.py        # from the repository root
 
@@ -10,7 +11,10 @@ Phases (each raises on failure, so any failure exits non-zero):
 
 1. card name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the kernels from ``comms_tpu_torch/csrc`` (one nvcc per source,
-   in parallel) and print ptxas's register and spill report;
+   in parallel) and print ptxas's register and spill report; build the
+   native block reader with g++ (``run_file`` reads through it from
+   phase 4 on; a failed build fails the run) and print its path and
+   seconds;
 3. FM: the fused FM kernel against its plain PyTorch version on the
    card, at the 26,214,400-sample block (from the stream-start context
    and from a mid-stream one) and on white noise;
@@ -176,7 +180,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    (zero bit errors after its two warm-up blocks) at 33,554,432 samples,
    each served with no sink beside the fused step (``est_lag=1``), with
    K5's launches a block; kernel rows for the Costas loop and the AGC
-   scan.
+   scan;
+21. the file edges (the counts of every kernel start at 0 before each
+   path and are read after it): the native block reader available (phase
+   2 built it); ``run_file`` at 26,214,400-sample
+   blocks over phase 4's capture through the native reader, 3 K1
+   launches, bit-equal to the same call with the reader's construction
+   made to fail (numpy reads); both readers' read GB/s over the capture
+   and ``run_file``'s seconds a block with each; the capture served from
+   ``FileReplayRadio`` through ``StreamRunner`` over the fused step into
+   a ``WavSink``, bit-equal to ``run_file``'s blocks and the WAV's frames
+   the scaled audio; ``play_audio.play_file`` on that audio as f32 and
+   i16 PCM; then each of the eleven examples' ``main`` on the card, one
+   line each with its seconds, its launches and its check (the FM tones
+   in fm_radio's WAV, the WAVs of multi_stream_serving against
+   ``run_file``'s blocks, zero bit errors from qpsk_receiver, each band
+   monitor channel's tone, the channelizer's tones, the transmitters'
+   files against the CPU's, qpsk_zmq's received samples against the
+   transmitter's blocks, the PSD's carriers, the sharded FM stream bit
+   for bit).
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
@@ -474,8 +496,10 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def fm_receiver_phases(dev, card: str) -> dict:
-    """Phases 3, 4 and the FM part of 7; returns K1's kernel-table row."""
+def fm_receiver_phases(dev, card: str):
+    """Phases 3, 4 and the FM part of 7; returns K1's kernel-table row and
+    the capture (u8 IQ [n, 2] and its instantaneous frequency), which
+    phase 21 reads again."""
     import torch
 
     from comms_tpu_torch.kernels import fm_chain as K
@@ -533,7 +557,7 @@ def fm_receiver_phases(dev, card: str) -> dict:
         path = Path(tmp) / "capture.iq"
         iq.tofile(path)
         t0 = time.perf_counter()
-        fused = fm.run_file(path, cfg, device="cuda")
+        fused = fm.run_file(path, cfg, device=dev)
         fused_s = time.perf_counter() - t0
         if K.launches != 3:
             fail(f"run_file fused: {K.launches} kernel launches, expected 3")
@@ -631,10 +655,28 @@ def fm_receiver_phases(dev, card: str) -> dict:
     # (conjugate product and degree-15 atan2, ~46 flops) and stage 2.
     nbytes = 2 * BLOCK + 4 * (BLOCK // 25)
     flops = (BLOCK // 5) * (4 * 63 + 46) + (BLOCK // 25) * 2 * 63
-    return kernel_row("fm_chain_fused", "fm_chain.cu",
-                      "comms_tpu/kernels/fm_chain_pallas.py:385",
-                      main_launches, max_abs_err, ms, plain_ms, nbytes,
-                      flops)
+    row = kernel_row("fm_chain_fused", "fm_chain.cu",
+                     "comms_tpu/kernels/fm_chain_pallas.py:385",
+                     main_launches, max_abs_err, ms, plain_ms, nbytes,
+                     flops)
+    return row, iq, w
+
+
+def build_native() -> None:
+    """Build (or load) the native block reader with g++ and print its
+    path and seconds.  ``run_file`` reads through it from phase 4 on, so
+    a failed build fails the run: no quiet fallback to numpy reads."""
+    from comms_tpu_torch import native
+    from comms_tpu_torch.native import loader
+
+    built = not loader.library_path().exists()
+    t0 = time.perf_counter()
+    if not native.native_available():
+        fail(f"the native reader does not build: {loader._build_error}")
+    print(f"native reader: {loader.library_path()} "
+          f"{'built' if built else 'loaded'} in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"(g++ {' '.join(loader.CXX_FLAGS)})")
 
 
 def print_ptxas_report(build) -> None:
@@ -3739,6 +3781,415 @@ def qpsk_link_phases(dev, card: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------- phase 21
+EDGE_EXAMPLE_BLOCKS = 3          # multi_stream_serving: blocks a capture
+EDGE_SERVE_STREAMS = 2
+EDGE_FM_RADIO_BLOCKS = 8         # fm_radio: 262,144-sample blocks
+EDGE_READ_REPS = 3
+KERNEL_MODULES = ("fm_chain", "decim_fir", "fir", "channelizer",
+                  "band_monitor", "qpsk_sym", "panel_reduce", "fft",
+                  "fft_big", "halo_ring", "recurrence")
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by module (and entry where a
+    module counts its entries apart)."""
+    import importlib
+
+    out = {}
+    for name in KERNEL_MODULES:
+        c = importlib.import_module(f"comms_tpu_torch.kernels.{name}").launches
+        if isinstance(c, dict):
+            out.update({f"{name}.{k}": v for k, v in c.items()})
+        else:
+            out[name] = c
+    return out
+
+
+def zero_counts() -> None:
+    import importlib
+
+    for name in KERNEL_MODULES:
+        mod = importlib.import_module(f"comms_tpu_torch.kernels.{name}")
+        if isinstance(mod.launches, dict):
+            for k in mod.launches:
+                mod.launches[k] = 0
+        else:
+            mod.launches = 0
+
+
+def launched() -> dict:
+    """The counts that are not 0."""
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+class python_io:
+    """Inside the block the native reader's construction fails, so
+    ``run_file`` takes its numpy fallback (as where no toolchain is)."""
+
+    def __enter__(self):
+        from comms_tpu_torch import native
+
+        def unavailable(*args, **kwargs):
+            raise RuntimeError("native reader made unavailable")
+        self._native, self._real = native, native.NativeBlockReader
+        native.NativeBlockReader = unavailable
+
+    def __exit__(self, *exc):
+        self._native.NativeBlockReader = self._real
+
+
+def read_rates(path: Path, nbytes: int) -> dict:
+    """GB/s of reading the capture a block of ``nbytes`` at a time, through
+    the native reader (its thread reading ahead, the blocks borrowed and
+    released) and through ``np.fromfile`` (a new array a block); the file
+    was just written, so both read from the page cache (warm).  Also the
+    seconds of the native reader's construction alone ("open": it
+    allocates and zero-fills its ring of three blocks before its thread
+    starts), which the native rate includes."""
+    from comms_tpu_torch.native import NativeBlockReader
+
+    size = path.stat().st_size
+    open_s = []
+
+    def native_read():
+        t0 = time.perf_counter()
+        with NativeBlockReader(path, block_bytes=nbytes) as rd:
+            open_s.append(time.perf_counter() - t0)
+            got = 0
+            while (b := rd.next_block()) is not None:
+                got += b.size
+        return got
+
+    def numpy_read():
+        got = 0
+        with open(path, "rb") as f:
+            while (b := np.fromfile(f, np.uint8, count=nbytes)).size:
+                got += b.size
+        return got
+
+    rates = {"native": [], "numpy": []}
+    for _ in range(EDGE_READ_REPS):
+        for name, fn in (("native", native_read), ("numpy", numpy_read)):
+            t0 = time.perf_counter()
+            if fn() != size:
+                fail(f"{name} read returned the wrong byte count")
+            rates[name].append(size / (time.perf_counter() - t0) / 1e9)
+    out = {k: statistics.median(v) for k, v in rates.items()}
+    out["open_s"] = statistics.median(open_s)
+    return out
+
+
+def wav_frames(path) -> np.ndarray:
+    import wave
+
+    with wave.open(str(path)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def pcm16(x) -> np.ndarray:
+    """What a WavSink writes for float samples ``x``."""
+    return np.clip(np.round(np.asarray(x, np.float64) * 32767.0),
+                   -32768, 32767).astype("<i2")
+
+
+def edges_phases(dev, card: str, iq: np.ndarray, w: np.ndarray) -> None:
+    """Phase 21: the native reader under ``run_file``, the capture served
+    from ``FileReplayRadio`` into a ``WavSink``, ``play_audio``, and each
+    example's ``main`` on the card."""
+    import os
+
+    import torch
+
+    from comms_tpu_torch import native
+    from comms_tpu_torch.hardware import FileReplayRadio
+    from comms_tpu_torch.io.audio import WavSink
+    from comms_tpu_torch.models import fm_receiver as fm
+    from comms_tpu_torch.models import play_audio
+    from comms_tpu_torch.native import loader
+    from comms_tpu_torch.runtime import StreamRunner
+
+    # ---- the reader (built in phase 2): part of the path, no fallback
+    if not native.native_available():
+        fail(f"the native reader does not build: {loader._build_error}")
+
+    cfg = fm.FmReceiverConfig(block=BLOCK)
+    n_total = iq.shape[0]
+    full = 3 * (BLOCK // 25)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = tmp / "capture.iq"
+        iq.tofile(path)
+
+        # ---- run_file at full width through the native reader
+        zero_counts()
+        t0 = time.perf_counter()
+        audio = fm.run_file(path, cfg, device=dev)
+        first_s = time.perf_counter() - t0
+        if launched() != {"fm_chain": 3}:
+            fail(f"run_file: launches {launched()}, expected 3 of K1")
+        with python_io():
+            fallback = fm.run_file(path, cfg, device=dev)
+        if not np.array_equal(audio, fallback):
+            fail("run_file: the native reader's audio differs from the "
+                 "numpy reads'")
+        want_len = fm._tail_valid_out(cfg, n_total)
+        if audio.shape != (want_len,) or not np.isfinite(audio).all():
+            fail(f"run_file: shape {audio.shape}, want ({want_len},)")
+        corr = demod_matches_tones(audio, w)
+        if corr < 0.99:
+            fail(f"run_file audio does not follow the tones: {corr}")
+        print(f"run_file at {BLOCK} (3 blocks + {RAGGED}): native reader "
+              f"= numpy reads bit for bit, K1 launches 3, tone "
+              f"correlation {corr:.5f}, first call {first_s:.3f} s")
+
+        # ---- timing: the readers alone, then run_file with each
+        rates = read_rates(path, 2 * BLOCK)
+        secs = {"native": [], "numpy": []}
+        for _ in range(2):
+            for name in ("native", "numpy"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "native":
+                    fm.run_file(path, cfg, device=dev)
+                else:
+                    with python_io():
+                        fm.run_file(path, cfg, device=dev)
+                secs[name].append((time.perf_counter() - t0) / 4)
+        print(f"read GB/s over the {path.stat().st_size} B capture "
+              f"(page cache, warm; median of {EDGE_READ_REPS}) on {card}: "
+              f"native {rates['native']:.3f} (of which its construction, "
+              f"the ring's allocation, {1e3 * rates['open_s']:.1f} ms), "
+              f"np.fromfile {rates['numpy']:.3f}")
+        print(f"run_file s a block (wall / 4: 3 blocks of {BLOCK} and the "
+              f"padded tail) on {card}: native "
+              f"{json.dumps([round(x, 5) for x in secs['native']])}, "
+              f"numpy {json.dumps([round(x, 5) for x in secs['numpy']])}")
+
+        # ---- served from the radio into a WAV
+        fblock = fm.make_fused_block_fn(cfg)
+        radio = FileReplayRadio(path, "u8", loop_forever=False)
+
+        def radio_blocks():
+            while (x := radio.recv_samples(BLOCK)).shape[0] == BLOCK:
+                yield np.ascontiguousarray(x[:, 0]), \
+                    np.ascontiguousarray(x[:, 1])
+
+        peak = float(np.max(np.abs(audio)))
+        served = []
+        wav = tmp / "served.wav"
+        zero_counts()
+        with WavSink(wav, channels=1, sample_rate=45600) as sink:
+            def keep(a):
+                served.append(a)
+                sink.write(a / peak)
+            meter = StreamRunner(
+                lambda s, x: fblock(s, *x), fm.fused_init_state(dev),
+                radio_blocks(), sink=keep,
+                samples_of=lambda x: x[0].shape[0], depth=SERVE_DEPTH,
+                device=dev).run()
+        served = np.concatenate(served)
+        if launched() != {"fm_chain": 3}:
+            fail(f"served radio: launches {launched()}, expected 3 of K1")
+        if not np.array_equal(served, audio[:full]):
+            fail("the radio-served audio differs from run_file's blocks")
+        if not np.array_equal(wav_frames(wav), pcm16(served / peak)):
+            fail("the served WAV's frames are not the scaled audio")
+        print(f"FileReplayRadio -> StreamRunner (fused step, depth "
+              f"{SERVE_DEPTH}) -> WavSink: 3 blocks bit-equal to run_file's, "
+              f"{meter.msps:.1f} Msps from host blocks, K1 launches 3")
+
+        # ---- play_audio: f32 and i16 PCM of that audio
+        scaled = (served / peak).astype(np.float32)
+        scaled.tofile(tmp / "pcm.f32")
+        pcm16(scaled).tofile(tmp / "pcm.i16")
+        n32 = play_audio.play_file(tmp / "pcm.f32", tmp / "f32.wav",
+                                   sample_rate=45600)
+        n16 = play_audio.play_file(tmp / "pcm.i16", tmp / "i16.wav",
+                                   dtype="i16", sample_rate=45600)
+        i16 = pcm16(scaled).astype(np.float32) / np.float32(32768.0)
+        if (n32, n16) != (full, full) or not (
+                np.array_equal(wav_frames(tmp / "f32.wav"), pcm16(scaled))
+                and np.array_equal(wav_frames(tmp / "i16.wav"), pcm16(i16))):
+            fail("play_audio's WAV frames differ from its PCM input")
+        print(f"play_audio: {full} samples as f32 and as i16, frames equal")
+
+        # ---- each example's main on the card
+        ex_dir = tmp / "examples"
+        ex_dir.mkdir()
+        here = os.getcwd()
+        os.chdir(ex_dir)
+        try:
+            edge_examples(dev, card, iq, w)
+        finally:
+            os.chdir(here)
+
+
+def run_example(name: str, fn, expect: dict):
+    """Run ``fn`` (an example's main) with every kernel count at 0 before
+    it; the kernels in ``expect`` must have launched that many times
+    (None: at least once), and no other kernel may have."""
+    import torch
+
+    zero_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launched()
+    for k, n in expect.items():
+        if (got.get(k, 0) == 0) if n is None else (got.get(k, 0) != n):
+            fail(f"example {name}: launches {got}, expected {expect}")
+    if set(got) - set(expect):
+        fail(f"example {name}: unexpected launches {got}")
+    return result, secs, got
+
+
+def edge_examples(dev, card: str, iq: np.ndarray, w: np.ndarray) -> None:
+    """The eleven examples in-process on the card (cwd: a scratch
+    directory), one line each: seconds, launches, result."""
+    import threading
+
+    import torch
+
+    from comms_tpu_torch.examples import (
+        bpsk_mod, channelizer_demo, fm_band_monitor, fm_radio,
+        fused_sharded_fm, multi_stream_serving, play_audio as play_ex,
+        qpsk_mod, qpsk_receiver, qpsk_zmq, wideband_psd)
+    from comms_tpu_torch.models import fm_receiver as fm
+    from comms_tpu_torch.models import qpsk_tx
+
+    def line(name, secs, got, what):
+        print(f"example {name} on {card}: {secs:.3f} s, launches "
+              f"{json.dumps(got)}, {what}")
+
+    # fm_radio: the default (dense, 262,144) configuration, no kernel
+    n = EDGE_FM_RADIO_BLOCKS * ENTRY_BLOCK + RAGGED
+    iq[:n].tofile("fm.u8")
+    got_n, secs, got = run_example(
+        "fm_radio", lambda: fm_radio.main(["fm.u8", "fm.wav"]), {})
+    frames = wav_frames("fm.wav")
+    corr = demod_matches_tones(frames.astype(np.float64), w)
+    if got_n != frames.shape[0] or corr < 0.99:
+        fail(f"fm_radio: {frames.shape[0]} frames, tone correlation {corr}")
+    line("fm_radio", secs, got, f"{got_n} samples, WAV tone correlation "
+         f"{corr:.5f}")
+
+    # play_audio: host only
+    np.linspace(-1, 1, 1 << 20, dtype=np.float32).tofile("pcm.f32")
+    got_n, secs, got = run_example(
+        "play_audio", lambda: play_ex.main(["pcm.f32", "pcm.wav"]), {})
+    if not np.array_equal(wav_frames("pcm.wav"),
+                          pcm16(np.linspace(-1, 1, 1 << 20,
+                                            dtype=np.float32))):
+        fail("play_audio example: frames differ")
+    line("play_audio", secs, got, f"{got_n} samples, frames equal")
+
+    # multi_stream_serving: 2 streams, the fused step (K1) a block
+    block = 16 * fm.FUSED_BLOCK_QUANTUM
+    caps = []
+    for s in range(EDGE_SERVE_STREAMS):
+        caps.append(f"stream{s}.u8")
+        iq[s * block:(s + EDGE_EXAMPLE_BLOCKS) * block].tofile(caps[-1])
+    rounds = EDGE_EXAMPLE_BLOCKS
+    meter, secs, got = run_example(
+        "multi_stream_serving", lambda: multi_stream_serving.main(caps),
+        {"fm_chain": EDGE_SERVE_STREAMS * rounds})
+    per = block // 25
+    for c in caps:
+        a = fm.run_file(c, fm.FmReceiverConfig(block=block), device=dev)
+        want = np.concatenate([
+            pcm16(a[b * per:(b + 1) * per]
+                  / (np.max(np.abs(a[b * per:(b + 1) * per])) or 1.0))
+            for b in range(rounds)])
+        if not np.array_equal(wav_frames(c + ".wav"), want):
+            fail(f"multi_stream_serving: {c}.wav differs from run_file's "
+                 f"blocks")
+    line("multi_stream_serving", secs, got,
+         f"{EDGE_SERVE_STREAMS} streams x {rounds} blocks of {block}, "
+         f"{meter.msps:.1f} Msps, WAVs equal run_file's blocks")
+
+    # qpsk_receiver: the Costas receiver, zero bit errors
+    (errs, m), secs, got = run_example(
+        "qpsk_receiver", lambda: qpsk_receiver.main([]),
+        {"recurrence.costas_loop": 24})
+    if errs:
+        fail(f"qpsk_receiver: {errs} bit errors of {m}")
+    line("qpsk_receiver", secs, got, f"{errs} bit errors of {m}")
+
+    # fm_band_monitor: the staged step at BM_BLOCK, K=16 (K8, K2)
+    re, im, tones = station_capture(BM_BLOCK, BM_K, 21, dev)
+    torch.stack([re, im], dim=-1).cpu().numpy().tofile("wide.f32")
+    audio, secs, got = run_example(
+        "fm_band_monitor",
+        lambda: fm_band_monitor.main(["wide.f32", str(BM_K)]),
+        {"channelizer": 1, "decim_fir": None})
+    ratios = tone_ratios(torch.from_numpy(audio), tones, 4)
+    if not np.isfinite(audio).all() or min(ratios) <= 10:
+        fail(f"fm_band_monitor: tone ratios {ratios}")
+    line("fm_band_monitor", secs, got, f"{BM_K} channels of "
+         f"{audio.shape[1]} samples, least tone ratio {min(ratios):.1f}")
+
+    # channelizer_demo: K=64 on K8
+    (tones64, found), secs, got = run_example(
+        "channelizer_demo", lambda: channelizer_demo.main([]),
+        {"channelizer": 1})
+    if found != tones64:
+        fail(f"channelizer_demo: tones {tones64}, found {found}")
+    line("channelizer_demo", secs, got, f"tones {found} found")
+
+    # bpsk_mod / qpsk_mod: 10 blocks on the card against the CPU
+    for name, mod in (("bpsk_mod", bpsk_mod), ("qpsk_mod", qpsk_mod)):
+        n_out, secs, got = run_example(
+            name, lambda: mod.main(["10", name + ".bin"]), {})
+        mod.main(["10", name + ".cpu.bin", "--device", "cpu"])
+        a = np.fromfile(name + ".bin", "<i2").astype(np.int64)
+        b = np.fromfile(name + ".cpu.bin", "<i2").astype(np.int64)
+        diff = np.abs(a - b).reshape(-1, 2).max(axis=1)
+        if a.shape != b.shape or diff.max() > 1 or np.mean(diff > 0) >= 0.01:
+            fail(f"{name}: the card's file differs from the CPU's beyond "
+                 f"1 LSB")
+        line(name, secs, got, f"{n_out} samples, file "
+             f"{'equal to' if diff.max() == 0 else 'within 1 LSB of'} the "
+             f"CPU's ({int(np.sum(diff > 0))} samples differ)")
+
+    # qpsk_zmq: send on the card, receive in a thread (TCP)
+    ep = f"tcp://127.0.0.1:{free_port()}"
+    rx = {}
+    t = threading.Thread(target=lambda: rx.update(
+        blocks=qpsk_zmq.main(["recv", ep, "10"])))
+    t.start()
+    sent, secs, got = run_example(
+        "qpsk_zmq", lambda: qpsk_zmq.main(["send", ep, "10"]), {})
+    t.join(timeout=120)
+    if t.is_alive() or "blocks" not in rx:
+        fail("qpsk_zmq: the receiver did not finish")
+    cfg = qpsk_tx.QpskTxConfig()
+    blk, st = qpsk_tx.make_block_fn(cfg), qpsk_tx.init_state(cfg, 0, dev)
+    want = []
+    for _ in range(10):
+        out, st = blk(st)
+        p = out.cpu().numpy().astype(np.float32) / cfg.scale
+        want.append((p[:, 0] + 1j * p[:, 1]).astype(np.complex64))
+    recv = np.concatenate(rx["blocks"])
+    if recv.shape[0] != sent or not np.array_equal(recv,
+                                                   np.concatenate(want)):
+        fail("qpsk_zmq: the received samples differ from the sent blocks")
+    line("qpsk_zmq", secs, got, f"{sent} samples over TCP, equal to the "
+         f"transmitter's blocks")
+
+    # wideband_psd and fused_sharded_fm: 8 shards on the one card.  The
+    # PSD on 8 shards is the distributed FFT (torch.fft.fft a shard, as
+    # the JAX package's jnp.fft.fft): no kernel of the port's.
+    top, secs, got = run_example("wideband_psd",
+                                 lambda: wideband_psd.main([]), {})
+    line("wideband_psd", secs, got, f"carriers at bins {top}")
+    exact, secs, got = run_example(
+        "fused_sharded_fm", lambda: fused_sharded_fm.main([]),
+        {"fm_chain": 16, "halo_ring": None})
+    line("fused_sharded_fm", secs, got, "sharded == sequential bit for bit")
+
+
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that the OS has just handed out."""
     import socket
@@ -3792,8 +4243,10 @@ def main() -> None:
                                  "stage_b_reduce_kernel",
                                  "stage_b_fft_kernel", "halo_ring_kernel",
                                  "costas_loop_kernel", "agc_scan_kernel"))
+    build_native()
 
-    rows = [fm_receiver_phases(dev, card)]
+    fm_row, fm_iq, fm_w = fm_receiver_phases(dev, card)
+    rows = [fm_row]
     rows += band_monitor_phases(dev, card)
     rows += qpsk_phases(dev, card)
     rows += spectrum_phases(dev, card)
@@ -3801,6 +4254,9 @@ def main() -> None:
     transmit_phases(dev, card)
     rows += runtime_phases(dev, card)
     rows += qpsk_link_phases(dev, card)
+    t0 = time.perf_counter()
+    edges_phases(dev, card, fm_iq, fm_w)
+    print(f"phase 21 (the file edges): {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

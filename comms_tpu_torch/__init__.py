@@ -19,7 +19,12 @@ Layout
               transmitters.
 ``parallel``  the sharded layer on an in-process mesh.
 ``runtime``   streaming executor and throughput metrics.
-``io``, ``util``  raw IQ files and SNR metrics (numpy).
+``io``, ``util``  raw IQ files, WAV audio, the socket transport and SNR
+              metrics (numpy).
+``native``    the C++ block reader and writer (g++ at first use).
+``hardware``  radio protocols, the file-replay radio, rtl-sdr.
+``examples``  the eleven example programs
+              (``python -m comms_tpu_torch.examples.<name>``).
 
 Importing the package builds nothing and loads no kernel library.
 """

@@ -19,8 +19,9 @@ Two ways to run a block:
   decimating FIRs run on the decimating-FIR kernel (K2) where the block
   meets its quantum.
 
-:func:`run_file` demodulates a recorded capture, taking the fused path
-on a CUDA device when the block size allows it.  The 63 LPF
+:func:`run_file` demodulates a recorded capture, read ahead by the
+native C++ block reader (:mod:`comms_tpu_torch.native`), taking the
+fused path on a CUDA device when the block size allows it.  The 63 LPF
 coefficients are the data constants of fm_radio.rs:29-55.
 """
 
@@ -332,6 +333,41 @@ def _fused_to_xla_state(cfg: FmReceiverConfig, fstate):
     return (ctx_pairs, fstate["prev"], fstate["d"][-cfg.ctx2_len:])
 
 
+def _read_blocks(iq_path, nbytes: int):
+    """The capture's bytes, ``nbytes`` a block, as uint8 arrays; the last
+    block may be short.  Through the native reader when it builds: a C++
+    thread reads the next blocks ahead while the device works, and each
+    block is a view borrowed from its ring, valid until the next one is
+    asked for.  Only the reader's construction may fall back to numpy
+    reads; once streaming starts every error propagates (a retry
+    mid-stream would repeat blocks with advanced state)."""
+    from comms_tpu_torch.native import NativeBlockReader
+
+    try:
+        reader = NativeBlockReader(iq_path, block_bytes=nbytes)
+    except (RuntimeError, OSError):
+        return _numpy_blocks(iq_path, nbytes)
+    return _native_blocks(reader)
+
+
+def _native_blocks(reader):
+    with reader:
+        while True:
+            data = reader.next_block()
+            if data is None:
+                return
+            yield data
+
+
+def _numpy_blocks(iq_path, nbytes: int):
+    with open(iq_path, "rb") as f:
+        while True:
+            data = np.fromfile(f, dtype=np.uint8, count=nbytes)
+            yield data
+            if data.size < nbytes:
+                return
+
+
 def run_file(iq_path, cfg: Optional[FmReceiverConfig] = None,
              out_path=None, fused: Optional[bool] = None,
              device="cuda") -> np.ndarray:
@@ -373,17 +409,25 @@ def run_file(iq_path, cfg: Optional[FmReceiverConfig] = None,
 
     chunks = []
     nbytes = cfg.block * 2
-    with open(iq_path, "rb") as f:
-        while True:
-            data = np.fromfile(f, dtype=np.uint8, count=nbytes)
+    blocks = _read_blocks(iq_path, nbytes)
+    try:
+        for data in blocks:
             if data.size < nbytes:
-                iq = data[: 2 * (data.size // 2)].reshape(-1, 2)
-                _append_tail(block, tail_state(state), iq, cfg, chunks,
-                             device)
+                # copied out of the reader's ring before it is reclaimed
+                tail = np.array(data[: 2 * (data.size // 2)])
+                _append_tail(block, tail_state(state), tail.reshape(-1, 2),
+                             cfg, chunks, device)
                 break
+            # The next block hands this one's buffer back to the reader
+            # thread, so the step must be done reading it by then.  It
+            # is: the copy below is from pageable memory, which PyTorch
+            # stages before .to() returns (no non_blocking copy, no
+            # pinned view); on the CPU, copy=True makes it a copy too.
             iq = torch.from_numpy(data.reshape(-1, 2))
-            audio, state = process(state, iq.to(device))
+            audio, state = process(state, iq.to(device, copy=True))
             chunks.append(audio.cpu().numpy())
+    finally:
+        blocks.close()
     audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
     if out_path is not None:
         audio.astype(np.float32).tofile(out_path)

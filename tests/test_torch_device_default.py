@@ -256,3 +256,38 @@ def test_every_blockop_state_defaults_to_the_card(name):
     cls = getattr(tblock, name)
     sig = inspect.signature(cls.init_state)
     assert sig.parameters["device"].default == "cuda"
+
+
+def _capture(tmp_path, n=4096, dtype=np.uint8):
+    p = tmp_path / "cap.bin"
+    np.zeros(2 * n, dtype).tofile(p)
+    return str(p)
+
+
+# Each example's main without --device: every one but play_audio (host
+# work only, no --device) runs on the card by default.
+EXAMPLE_CALLS = {
+    "fm_radio": lambda t: [_capture(t), str(t / "a.wav")],
+    "multi_stream_serving": lambda t: [_capture(t, 1 << 21)],
+    "qpsk_receiver": lambda t: ["4"],
+    "fm_band_monitor": lambda t: [_capture(t, 1 << 12, np.float32), "8"],
+    "channelizer_demo": lambda t: ["16"],
+    "bpsk_mod": lambda t: ["1", str(t / "b.bin")],
+    "qpsk_mod": lambda t: ["1", str(t / "q.bin")],
+    "qpsk_zmq": lambda t: ["send", "tcp://127.0.0.1:1", "1"],
+    "wideband_psd": lambda t: ["10"],
+    "fused_sharded_fm": lambda t: ["2"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_CALLS))
+def test_example_defaults_to_the_card(name, tmp_path, monkeypatch):
+    import importlib
+
+    mod = importlib.import_module(f"comms_tpu_torch.examples.{name}")
+    assert mod.parser().get_default("device") == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default call is valid")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        mod.main(EXAMPLE_CALLS[name](tmp_path))

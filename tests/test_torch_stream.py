@@ -152,5 +152,14 @@ def test_package_imports_no_jax():
                  "parallel.dfft", "parallel.wideband",
                  "parallel.fused_wideband", "parallel.wideband2d",
                  "parallel.qpsk_rx_sharded", "parallel.scaling",
-                 "parallel.dryrun"):
+                 "parallel.dryrun",
+                 "native", "native.loader", "io.audio",
+                 "models.play_audio", "hardware", "hardware.radio",
+                 "hardware.rtlsdr", "examples", "examples._cli",
+                 "examples.fm_radio", "examples.play_audio",
+                 "examples.multi_stream_serving", "examples.qpsk_receiver",
+                 "examples.fm_band_monitor", "examples.channelizer_demo",
+                 "examples.bpsk_mod", "examples.qpsk_mod",
+                 "examples.qpsk_zmq", "examples.wideband_psd",
+                 "examples.fused_sharded_fm"):
         assert "comms_tpu_torch." + name in imported
