@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the FM broadcast
 receiver, the wideband FM band monitor, the QPSK receiver, FFT and Welch
 spectrum monitoring, the sharded layer on an 8-shard mesh of the card,
-the BPSK and QPSK transmitters, the QPSK link, and the file edges (the
-native block reader, audio, the file-replay radio and the examples).
+the BPSK and QPSK transmitters, the QPSK link, the file edges (the
+native block reader, audio, the file-replay radio and the examples),
+and the sharded layer across two processes on the card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -199,6 +200,24 @@ Phases (each raises on failure, so any failure exits non-zero):
    files against the CPU's, qpsk_zmq's received samples against the
    transmitter's blocks, the PSD's carriers, the sharded FM stream bit
    for bit).
+22. two processes on the card (``parallel.multihost``, gloo; each
+   started as ``chip_smoke.py --pod-worker RANK PORT DIR`` with a
+   timeout, its output read; one that exits non-zero, times out or
+   prints no OK line fails the run), 4 shards each of an 8-shard pod
+   mesh, each program against the 8-shard mesh in one process bit for
+   bit: the psum; K12's cross-process form at the fused raw tails
+   (25,669-byte u8 tails, the ring wrapped, 3 calls, a cross-process
+   launch a call on each rank) against the exchange in one process; the
+   fused FM step at 26,214,400 samples, 3 blocks chained from stream
+   start (the counts at 0 before, K1 4 a block a rank, K12 1 and 2 a
+   block; audio and state written by the workers and compared here);
+   the wideband chain at 26,214,400 and the QPSK receiver at 2^25 (K5
+   per shard); dry-run config 8 across the processes.  It prints K12's
+   cross-process device ms and host µs a call (and the gloo barrier's
+   alone) beside its plain version (gloo on host tensors), the fused
+   step's wall ms a block on 2 processes beside one process x 8 shards,
+   and each worker's seconds, each beside the card's name and power
+   limit; K12's cross-process row joins the kernel table.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
@@ -2670,10 +2689,11 @@ def sharded_phases(dev, card: str) -> list:
     print(f"dryrun_multichip({SH_SHARDS}) on {card}: OK in "
           f"{time.perf_counter() - t0:.1f} s, {HR.launches} K12 launches")
     # configs 1 (4 rings x 3 steps), 2 (2), 3 (the pulse shaper's halo,
-    # 2 steps), 4 (1), 5 (2), 6 (2), 7 (1) and 9 (3 rings x 2 steps on the
-    # 2 x 4 mesh)
-    if HR.launches != 12 + 2 + 2 + 1 + 2 + 2 + 1 + 6:
-        fail(f"dry run: {HR.launches} K12 launches, expected 28")
+    # 2 steps), 4 (1), 5 (2), 6 (2), 7 (1), 8 (4 rings x 2 steps: the pod
+    # mesh in one process and the time mesh) and 9 (3 rings x 2 steps on
+    # the 2 x 4 mesh)
+    if HR.launches != 12 + 2 + 2 + 1 + 2 + 2 + 1 + 8 + 6:
+        fail(f"dry run: {HR.launches} K12 launches, expected 36")
     print("K12 launches per sharded main path:", json.dumps(counts))
 
     times = {}
@@ -4190,6 +4210,323 @@ def edge_examples(dev, card: str, iq: np.ndarray, w: np.ndarray) -> None:
     line("fused_sharded_fm", secs, got, "sharded == sequential bit for bit")
 
 
+# Phase 22, the multi-process slice: 2 processes on the one card (two
+# CUDA contexts, time-sliced), 4 shards each of an 8-shard pod mesh
+# (parallel.multihost), against the same programs on an 8-shard mesh in
+# one process, bit for bit: the psum, K12's cross-process form at the fused
+# FM raw tails (3 calls), the fused FM step at BLOCK (3 blocks chained from
+# stream start: its audio and state compared in this process), the
+# wideband chain at BLOCK (2^25 does not divide by the chain's 25) and the
+# QPSK receiver at QPSK_N, and dry-run config 8.
+POD_PROCS = 2
+POD_LOCAL = 4
+POD_DEVICE = "cuda"
+POD_BLOCKS = 3
+POD_SEED = 45
+POD_TIMEOUT_S = 300
+POD_K12_REPS = 21
+POD_K12_HOST_CALLS = 100
+
+
+def pod_worker(rank: int, port: int, out: Path) -> None:
+    """One process of phase 22 (``chip_smoke.py --pod-worker RANK PORT
+    DIR``): joins the process group, runs each program over the pod mesh
+    and over an 8-shard mesh in this process, holds its own shards bit for
+    bit, writes its fused FM audio and state to ``DIR``, prints one
+    ``POD_WORKER`` JSON line of counts and times, then ``POD_WORKER_OK``.
+    Any disagreement exits non-zero.  The FM capture comes from the
+    parent (``DIR/fm_u8.npy``): made on each card apart, the float64
+    cumulative sum of its phase may round otherwise in the last bit; the
+    QPSK capture (no scan) is made here and its checksum held equal
+    across the processes."""
+    import torch
+    import torch.distributed
+
+    from comms_tpu_torch.kernels import halo_ring as HR
+    from comms_tpu_torch.models import fm_receiver as fm
+    from comms_tpu_torch.models import qpsk_rx as trx
+    from comms_tpu_torch.parallel import dryrun, multihost
+    from comms_tpu_torch.parallel import fused_wideband as fw
+    from comms_tpu_torch.parallel import qpsk_rx_sharded as qs
+    from comms_tpu_torch.parallel import sharding as sh
+    from comms_tpu_torch.parallel import wideband as wb
+
+    t_start = time.perf_counter()
+    multihost.init(f"127.0.0.1:{port}", POD_PROCS, rank)
+    mesh = multihost.pod_mesh(local_shards=POD_LOCAL, device=POD_DEVICE)
+    dev = mesh.devices[mesh.local[0]]
+    one = sh.time_mesh(mesh.size, device=dev)
+    rep = {"rank": rank, "device": str(dev)}
+    tail = fm.FUSED_TAIL_SAMPLES
+
+    def mine(x):
+        per = x.shape[0] // POD_PROCS
+        return multihost.host_feed(x[rank * per:(rank + 1) * per], mesh)
+
+    def same_shards(got, want, what):
+        for s in got.addressable_shards:
+            if not torch.equal(s.data, want[s.index]):
+                fail(f"rank {rank}: {what}: shard {s.index} differs from "
+                     f"the mesh in one process")
+
+    # ---- the psum: every shard's part summed in shard order
+    tot = sh.psum([torch.tensor(float(s), device=dev) for s in mesh.local],
+                  mesh)
+    if any(float(t) != sum(range(mesh.size)) for t in tot):
+        fail(f"rank {rank}: psum {[float(t) for t in tot]}")
+
+    # ---- K12 across processes at the fused raw tails: two u8 planes, 8
+    # shards of BLOCK / 8, 25,669-byte tails, the ring wrapped
+    re, im = torch.from_numpy(np.load(out / "fm_u8.npy")).to(dev).unbind(0)
+    planes = [list(torch.chunk(p[:BLOCK], mesh.size)) for p in (re, im)]
+    rings = [[x if s in mesh.slot else None for s, x in enumerate(p)]
+             for p in planes]
+    owners = [mesh.owners] * len(planes)
+    want = HR.exchange(planes, tail)
+    HR.cross_launches = 0
+    for _ in range(3):
+        got = HR.exchange_across(rings, owners, tail)
+        for g, w in zip(got, want):
+            for s in mesh.local:
+                if not torch.equal(g[s], w[s]):
+                    fail(f"rank {rank}: K12 across processes differs from "
+                         f"the exchange in one process at shard {s}")
+    torch.cuda.synchronize()
+    if HR.cross_launches != 3:
+        fail(f"rank {rank}: {HR.cross_launches} cross-process K12 launches "
+             f"in 3 calls")
+    ev_ms = []
+    for _ in range(POD_K12_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        HR.exchange_across(rings, owners, tail)
+        b.record()
+        b.synchronize()
+        ev_ms.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(POD_K12_HOST_CALLS):
+        HR.exchange_across(rings, owners, tail)
+    host_us = (time.perf_counter() - t0) / POD_K12_HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(POD_K12_HOST_CALLS):
+        torch.distributed.barrier()
+    barrier_us = (time.perf_counter() - t0) / POD_K12_HOST_CALLS * 1e6
+    cpu_rings = [[None if x is None else x[-tail:].cpu() for x in r]
+                 for r in rings]
+    plain = []
+    for _ in range(POD_K12_REPS):
+        t0 = time.perf_counter()
+        got_cpu = HR.exchange_across(cpu_rings, owners, tail)
+        plain.append((time.perf_counter() - t0) * 1e3)
+    for g, w in zip(got_cpu, want):
+        for s in mesh.local:
+            if not torch.equal(g[s], w[s].cpu()):
+                fail(f"rank {rank}: the plain cross-process exchange differs")
+    rep["k12"] = {"device_ms": statistics.median(ev_ms),
+                  "host_us": host_us, "barrier_us": barrier_us,
+                  "plain_ms": statistics.median(plain),
+                  "pairs": 2 * mesh.size, "bytes_each": tail}
+
+    # ---- the main path: the fused FM step (K1 per shard, K12 raw tails),
+    # 3 blocks chained from stream start; counts from 0 just before
+    step = fw.make_sharded_fused_step(mesh, block=BLOCK)
+    blocks = [(re[b * BLOCK:(b + 1) * BLOCK], im[b * BLOCK:(b + 1) * BLOCK])
+              for b in range(POD_BLOCKS)]
+
+    def run_fused():
+        st, audio = fm.fused_init_state(dev), []
+        for r_, i_ in blocks:
+            a, st = step(st, mine(r_), mine(i_))
+            audio.append(a)
+        return audio, st
+
+    zero_counts()
+    HR.cross_launches = 0
+    audio, st = run_fused()
+    torch.cuda.synchronize()
+    rep["fused_launches"] = launched()
+    rep["fused_cross_launches"] = HR.cross_launches
+    expect = {"fm_chain": POD_BLOCKS * POD_LOCAL,
+              "halo_ring": POD_BLOCKS * (1 + rank)}
+    if rep["fused_launches"] != expect or HR.cross_launches != expect[
+            "halo_ring"]:
+        fail(f"rank {rank}: fused step launches {rep['fused_launches']}, "
+             f"cross-process K12 {HR.cross_launches}; expected {expect}")
+    torch.save({"audio": [torch.cat([s.data for s in a.addressable_shards])
+                          .cpu() for a in audio],
+                "lo": audio[0].addressable_shards[0].index[0].start,
+                "state": {k: v.cpu() for k, v in st.items()}},
+               out / f"fused_{rank}.pt")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_fused()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / POD_BLOCKS)
+    rep["fused_ms_a_block"] = statistics.median(walls)
+
+    # ---- the wideband chain at BLOCK, one block, and its state
+    pairs = torch.stack([re[:BLOCK], im[:BLOCK]], -1).float().sub_(
+        127.5).div_(127.5)
+    cfg = wb.WidebandConfig(fm.FM_LPF_TAPS, block=BLOCK, dec1=5, dec2=5)
+    zero_counts()
+    (a_p, f_p), st_p = wb.make_sharded_step(cfg, mesh)(wb.init_state(cfg, dev),
+                                                       mine(pairs))
+    torch.cuda.synchronize()
+    rep["wideband_launches"] = launched()
+    (a_1, f_1), st_1 = wb.make_sharded_step(cfg, one)(wb.init_state(cfg, dev),
+                                                      pairs)
+    same_shards(a_p, a_1, "wideband audio")
+    if not (torch.equal(f_p, f_1)
+            and all(torch.equal(x, y) for x, y in zip(st_p, st_1))):
+        fail(f"rank {rank}: wideband estimate or state differs")
+    del pairs, a_p, a_1
+
+    # ---- the QPSK receiver at QPSK_N (K5 per shard)
+    qre, qim, _ = qpsk_capture(dev, seed=7)
+    sums = [None] * POD_PROCS
+    torch.distributed.all_gather_object(sums, [
+        int(p.view(torch.int32).to(torch.int64).sum()) for p in (qre, qim)])
+    if any(x != sums[0] for x in sums):
+        fail(f"rank {rank}: the QPSK captures differ between processes")
+    qcfg = trx.QpskRxConfig()
+    zero_counts()
+    sym_p, d_p = qs.make_sharded_rx_step(qcfg, mesh)(mine(qre), mine(qim))
+    torch.cuda.synchronize()
+    rep["qpsk_launches"] = launched()
+    sym_1, d_1 = qs.make_sharded_rx_step(qcfg, one)(qre, qim)
+    same_shards(sym_p, sym_1, "QPSK symbols")
+    if d_p.keys() != d_1.keys() or not all(torch.equal(d_p[k], d_1[k])
+                                           for k in d_p):
+        fail(f"rank {rank}: QPSK estimates differ")
+    for name in ("wideband_launches", "qpsk_launches"):
+        if not rep[name].get("halo_ring"):
+            fail(f"rank {rank}: {name} {rep[name]}: no K12 launch")
+    if rep["qpsk_launches"].get("qpsk_sym.qpsk_panels") != POD_LOCAL:
+        fail(f"rank {rank}: QPSK launches {rep['qpsk_launches']}")
+    del qre, qim, sym_p, sym_1
+
+    # ---- dry-run config 8 across the processes
+    dryrun.dryrun_multihost(POD_LOCAL, dev)
+    torch.cuda.synchronize()
+    rep["seconds"] = time.perf_counter() - t_start
+    print("POD_WORKER " + json.dumps(rep), flush=True)
+    multihost.shutdown()
+    print(f"POD_WORKER_OK {rank}", flush=True)
+
+
+def multiprocess_phase(dev, card: str) -> list:
+    """Phase 22: 2 worker processes on the card (``pod_worker``), each
+    with a timeout and its output read; any worker that exits non-zero,
+    times out or prints no OK line fails the run.  Their fused FM audio
+    and states against the 8-shard mesh in this process, bit for bit; the
+    times beside the card; K12's cross-process row of the kernel table."""
+    import gc
+
+    import torch
+
+    from comms_tpu_torch.models import fm_receiver as fm
+    from comms_tpu_torch.parallel import fused_wideband as fw
+    from comms_tpu_torch.parallel import sharding as sh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        re, im = fm_u8_planes(POD_BLOCKS * BLOCK, POD_SEED, dev)
+        np.save(Path(tmp) / "fm_u8.npy", torch.stack([re, im]).cpu().numpy())
+        port = free_port()
+        workers = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--pod-worker",
+             str(r), str(port), tmp], cwd=str(REPO), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(POD_PROCS)]
+        outs = []
+        try:
+            for w in workers:
+                outs.append((w.communicate(timeout=POD_TIMEOUT_S)[0],
+                             w.returncode))
+        except subprocess.TimeoutExpired:
+            for w in workers:
+                w.kill()
+            for w in workers:
+                w.communicate()
+            fail(f"phase 22: a worker ran past {POD_TIMEOUT_S} s")
+        reps = []
+        for r, (o, rc) in enumerate(outs):
+            if rc != 0 or f"POD_WORKER_OK {r}" not in o:
+                fail(f"phase 22: worker {r} exited {rc}:\n{o[-4000:]}")
+            line = [x for x in o.splitlines() if x.startswith("POD_WORKER {")]
+            reps.append(json.loads(line[-1][len("POD_WORKER "):]))
+            print(f"[worker {r}] {line[-1][len('POD_WORKER '):]}")
+        wall_s = time.perf_counter() - t0
+
+        # the one-process 8-shard mesh on the same blocks
+        blocks = [(re[b * BLOCK:(b + 1) * BLOCK],
+                   im[b * BLOCK:(b + 1) * BLOCK]) for b in range(POD_BLOCKS)]
+        step = fw.make_sharded_fused_step(
+            sh.time_mesh(POD_PROCS * POD_LOCAL, device=dev), block=BLOCK)
+
+        def run_fused():
+            st, audio = fm.fused_init_state(dev), []
+            for r_, i_ in blocks:
+                a, st = step(st, r_, i_)
+                audio.append(a)
+            return audio, st
+
+        ref, ref_st = run_fused()
+        torch.cuda.synchronize()
+        for r in range(POD_PROCS):
+            got = torch.load(Path(tmp) / f"fused_{r}.pt")
+            lo = got["lo"]
+            for b, a in enumerate(got["audio"]):
+                if not torch.equal(a, ref[b][lo:lo + a.shape[0]].cpu()):
+                    fail(f"phase 22: worker {r}'s fused FM audio of block "
+                         f"{b} differs from the mesh in one process")
+            if not all(torch.equal(got["state"][k], ref_st[k].cpu())
+                       for k in ref_st):
+                fail(f"phase 22: worker {r}'s fused FM state differs")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_fused()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3 / POD_BLOCKS)
+    one_ms = statistics.median(walls)
+    k12 = [x["k12"] for x in reps]
+    print(f"K12 across 2 processes on {card}, a call at the fused raw tails "
+          f"({k12[0]['pairs']} pairs of {k12[0]['bytes_each']} B, barrier "
+          f"and events included): device ms (events on each rank's stream) "
+          f"{[x['device_ms'] for x in k12]}, host us "
+          f"{[x['host_us'] for x in k12]} (the gloo barrier alone "
+          f"{[x['barrier_us'] for x in k12]}); plain version (gloo, host "
+          f"tensors) ms {[x['plain_ms'] for x in k12]}")
+    print(f"fused FM step on {card}, wall ms a block of {BLOCK} (3 blocks "
+          f"chained, median of 3 runs): 2 processes x {POD_LOCAL} shards "
+          f"{[x['fused_ms_a_block'] for x in reps]}, one process x "
+          f"{POD_PROCS * POD_LOCAL} shards {one_ms}")
+    launches = [(x["fused_launches"], x["wideband_launches"],
+                 x["qpsk_launches"]) for x in reps]
+    print(f"phase 22 on {card}: workers' seconds "
+          f"{[x['seconds'] for x in reps]}, launches a rank (fused, "
+          f"wideband, QPSK): {launches}, "
+          f"{wall_s:.1f} s with the workers; fused, wideband and QPSK "
+          f"bit-equal to one process; config 8 OK")
+    pairs, nbytes = k12[0]["pairs"], k12[0]["bytes_each"]
+    return [kernel_row(
+        "ring_halo_exchange_across_processes", "halo_ring.cu",
+        "comms_tpu/kernels/halo_rdma.py:84",
+        sum(x["fused_launches"]["halo_ring"] for x in reps), 0.0,
+        statistics.median(x["device_ms"] for x in k12),
+        statistics.median(x["plain_ms"] for x in k12),
+        2 * pairs * nbytes, 0)]
+
+
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that the OS has just handed out."""
     import socket
@@ -4257,6 +4594,9 @@ def main() -> None:
     t0 = time.perf_counter()
     edges_phases(dev, card, fm_iq, fm_w)
     print(f"phase 21 (the file edges): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += multiprocess_phase(dev, card)
+    print(f"phase 22 (two processes): {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4264,4 +4604,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--pod-worker"]:
+        pod_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    else:
+        main()

@@ -7,14 +7,17 @@
 // then RDMAs its last `halo` samples into its right neighbour's halo
 // buffer in VMEM (rank 0 receives rank n-1's tail: the ring wraps).  The
 // barrier is there only because a remote write lands in another chip's
-// live buffer.  Here every shard of the ring lies on one card: the
-// exchange is one launch that copies P (src, dst) byte ranges of `nbytes`
-// each, the wrapper having built the pairs (the wrapped ring, the ring
-// with the carried context as the first shard's source, one ring per
-// group along an axis of a 2-D mesh, several planes in the same launch).
-// One launch on the current stream replaces the barrier: stream order
-// already puts every producer of a source before it, no other card takes
-// part, and every destination is a fresh buffer that aliases no source.
+// live buffer.  Within one process every shard of the ring lies on one
+// card: the exchange is one launch that copies P (src, dst) byte ranges
+// of `nbytes` each, the wrapper having built the pairs (the wrapped ring,
+// the ring with the carried context as the first shard's source, one ring
+// per group along an axis of a 2-D mesh, several planes in the same
+// launch).  One launch on the current stream replaces the barrier: stream
+// order already puts every producer of a source before it, no other card
+// takes part, and every destination is a fresh buffer that aliases no
+// source.  Across processes (the entries at the end of this file) the
+// same launch also carries the pairs whose destination is a window in
+// another process's memory.
 //
 // Bound on the H100: it moves 2 * P * nbytes through device memory
 // (3.35 TB/s).  At the sharded paths' halos (tens of bytes to 2 x 25,669
@@ -45,6 +48,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -272,4 +276,113 @@ extern "C" int halo_ring_floor_launch(int big, int blocks, void* stream) {
     halo_ring_floor_kernel<FloorSmall><<<blocks, kThreads, 0, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- The cross-process form (parallel.multihost: one process a rank).
+// The ranks are separate processes, each with its own CUDA context, as
+// the TPU kernel's ranks are separate programs.  The remote copy becomes
+// the same kernel writing into a window of the neighbour's memory mapped
+// through CUDA IPC (on the same card, or on a peer card by lazy peer
+// access).  The barrier semaphore becomes interprocess events and a host
+// barrier (kernels/halo_ring.py sets out the order): no kernel spins on a
+// flag, since two contexts on one card run by time-slicing.  Windows are
+// allocated here with cudaMalloc, not by PyTorch's caching allocator,
+// whose expandable segments export no IPC handle.  Each entry returns its
+// cudaError_t; handles are the 64-byte cudaIpc*Handle_t, copied in and
+// out as bytes.
+
+extern "C" int halo_ipc_handle_bytes() {
+  return static_cast<int>(sizeof(cudaIpcMemHandle_t));
+}
+
+// A receive window of `nbytes` on the current device and its IPC handle.
+extern "C" int halo_ipc_window_alloc(long long nbytes, void** ptr,
+                                     void* handle) {
+  *ptr = nullptr;
+  if (nbytes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMalloc(ptr, static_cast<size_t>(nbytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  if (e != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return static_cast<int>(e);
+}
+
+// Another process's window, mapped into this one.
+extern "C" int halo_ipc_window_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int halo_ipc_window_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+extern "C" int halo_ipc_window_free(void* ptr) {
+  return static_cast<int>(cudaFree(ptr));
+}
+
+// An interprocess event (no timing) and its IPC handle.
+extern "C" int halo_ipc_event_create(void** ev, void* handle) {
+  cudaEvent_t e = nullptr;
+  *ev = nullptr;
+  cudaError_t r = cudaEventCreateWithFlags(
+      &e, cudaEventInterprocess | cudaEventDisableTiming);
+  if (r != cudaSuccess) return static_cast<int>(r);
+  r = cudaIpcGetEventHandle(static_cast<cudaIpcEventHandle_t*>(handle), e);
+  if (r != cudaSuccess) {
+    cudaEventDestroy(e);
+    return static_cast<int>(r);
+  }
+  *ev = e;
+  return 0;
+}
+
+// Another process's event, opened in this one.
+extern "C" int halo_ipc_event_open(const void* handle, void** ev) {
+  cudaIpcEventHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  cudaEvent_t e = nullptr;
+  const cudaError_t r = cudaIpcOpenEventHandle(&e, h);
+  *ev = e;
+  return static_cast<int>(r);
+}
+
+extern "C" int halo_ipc_event_destroy(void* ev) {
+  return static_cast<int>(cudaEventDestroy(static_cast<cudaEvent_t>(ev)));
+}
+
+// `stream` waits for every event of `evs` (an event's latest record in
+// any process), then records `ev` when not null.
+extern "C" int halo_ipc_wait_record(void* const* evs, int n, void* ev,
+                                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t r =
+        cudaStreamWaitEvent(s, static_cast<cudaEvent_t>(evs[i]), 0);
+    if (r != cudaSuccess) return static_cast<int>(r);
+  }
+  if (ev != nullptr) {
+    return static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(ev), s));
+  }
+  return 0;
+}
+
+// The receiving side: `stream` waits for the sender's `written` event,
+// copies `nbytes` of the window out to `dst`, and records `freed` (the
+// sender waits on it before it writes this window again).
+extern "C" int halo_ipc_copy_out(void* written, const void* window,
+                                 void* dst, long long nbytes, void* freed,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t r = cudaStreamWaitEvent(s, static_cast<cudaEvent_t>(written), 0);
+  if (r != cudaSuccess) return static_cast<int>(r);
+  r = cudaMemcpyAsync(dst, window, static_cast<size_t>(nbytes),
+                      cudaMemcpyDeviceToDevice, s);
+  if (r != cudaSuccess) return static_cast<int>(r);
+  return static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(freed), s));
 }

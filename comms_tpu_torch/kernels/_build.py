@@ -234,6 +234,32 @@ def _bind(lib) -> None:
     lib.halo_ring_floor_launch.argtypes = [
         i32, i32, ptr,             # 2 KB parameter block?, blocks, stream
     ]
+    pptr = ctypes.POINTER(ctypes.c_void_p)
+    lib.halo_ipc_handle_bytes.restype = i32
+    lib.halo_ipc_handle_bytes.argtypes = []
+    lib.halo_ipc_window_alloc.restype = i32
+    lib.halo_ipc_window_alloc.argtypes = [i64, pptr, ptr]  # bytes, out, handle
+    lib.halo_ipc_window_open.restype = i32
+    lib.halo_ipc_window_open.argtypes = [ptr, pptr]        # handle, out
+    lib.halo_ipc_window_close.restype = i32
+    lib.halo_ipc_window_close.argtypes = [ptr]
+    lib.halo_ipc_window_free.restype = i32
+    lib.halo_ipc_window_free.argtypes = [ptr]
+    lib.halo_ipc_event_create.restype = i32
+    lib.halo_ipc_event_create.argtypes = [pptr, ptr]       # out, handle
+    lib.halo_ipc_event_open.restype = i32
+    lib.halo_ipc_event_open.argtypes = [ptr, pptr]         # handle, out
+    lib.halo_ipc_event_destroy.restype = i32
+    lib.halo_ipc_event_destroy.argtypes = [ptr]
+    lib.halo_ipc_wait_record.restype = i32
+    lib.halo_ipc_wait_record.argtypes = [
+        ptr, i32, ptr, ptr,        # events to wait for, count, record, stream
+    ]
+    lib.halo_ipc_copy_out.restype = i32
+    lib.halo_ipc_copy_out.argtypes = [
+        ptr, ptr, ptr, i64,        # written event, window, dst, bytes
+        ptr, ptr,                  # freed event, cudaStream_t
+    ]
 
 
 def library_path() -> Path:

@@ -371,14 +371,16 @@ def _phase_slope(q4r, q4i):
     return _slope_fit(zr, zi)
 
 
-def _phase_slope_sharded(q4s, starts, reduce):
+def _phase_slope_sharded(q4s, starts, reduce, total=None):
     """:func:`_phase_slope` over a block held as shards: ``q4s`` the
-    per-shard ``(q4r, q4i)`` in shard order, ``starts`` each shard's
-    global first-symbol index.  Each shard sums its symbols per global
-    segment; ``reduce`` adds the per-shard segment sums in shard order;
-    the fit runs once on the global sums.  None for a block of fewer
-    than two segments."""
-    total = sum(int(q[0].shape[0]) for q in q4s)
+    per-shard ``(q4r, q4i)`` in shard order (this process's shards),
+    ``starts`` each shard's global first-symbol index, ``total`` the
+    block's symbols (by default those of ``q4s``, every shard in one
+    process).  Each shard sums its symbols per global segment; ``reduce``
+    adds the per-shard segment sums in shard order; the fit runs once on
+    the global sums.  None for a block of fewer than two segments."""
+    if total is None:
+        total = sum(int(q[0].shape[0]) for q in q4s)
     K = total // SLOPE_SEGMENT
     if K < 2:
         return None
@@ -434,17 +436,19 @@ def _symbol_tail(sr, si, fphase=None, pfine=None, warm=None, reduce=None,
     per-shard symbol planes in shard order, ``reduce`` maps the list of
     the shards' estimator sums (tuples of tensors) to their global sums
     (the sums are additive across time shards), and ``sym_offset =
-    (block_symbols, shard_indices)`` anchors every rotation at each
-    shard's global first symbol, so every shard applies the same
+    (block_symbols, shard_indices, shards)`` anchors every rotation at
+    each shard's global first symbol, so every shard applies the same
     globally coherent correction; the slope fit runs on the global
-    segment sums.  The symbol planes come back as a list per shard."""
+    segment sums of ``block_symbols * shards`` symbols.  The lists may
+    hold a part of the shards (those of one process, across processes).
+    The symbol planes come back as a list per shard."""
     sharded = reduce is not None
     srs, sis = (list(sr), list(si)) if sharded else ([sr], [si])
     red = reduce if sharded else (lambda parts: parts[0])
     if sym_offset is not None:
-        mloc, idxs = sym_offset
+        mloc, idxs, nshards = sym_offset
     else:
-        mloc, idxs = None, [0] * len(srs)
+        mloc, idxs, nshards = None, [0] * len(srs), len(srs)
 
     def anchored(phase0, w, idx):
         if mloc is None:
@@ -466,8 +470,9 @@ def _symbol_tail(sr, si, fphase=None, pfine=None, warm=None, reduce=None,
 
     q4 = [_fourth_power(a, b) for a, b in rot]
     if sharded:
-        dw = _phase_slope_sharded(
-            q4, [i * (mloc if mloc is not None else 0) for i in idxs], red)
+        per = mloc if mloc is not None else 0
+        dw = _phase_slope_sharded(q4, [i * per for i in idxs], red,
+                                  per * nshards if mloc is not None else None)
     else:
         dw = _phase_slope(*q4[0])
     if dw is not None:

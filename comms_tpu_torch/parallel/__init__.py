@@ -1,12 +1,13 @@
-"""Parallel layer on an in-process mesh: the mesh, time-block sharding
-with halo exchange (the ring kernel), channel sharding, the distributed
-FFT and the sharded models.  Multi-process meshes (the JAX package's
-``parallel/multihost.py``) come with a later slice."""
+"""Parallel layer: the mesh, time-block sharding with halo exchange (the
+ring kernel), channel sharding, the distributed FFT, the sharded models
+and the multi-process runtime (``multihost``: a mesh whose shards span
+processes on ``torch.distributed``)."""
 
 from comms_tpu_torch.parallel import (  # noqa: F401
     dfft,
     dryrun,
     fused_wideband,
+    multihost,
     qpsk_rx_sharded,
     scaling,
     sharding,

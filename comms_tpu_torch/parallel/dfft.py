@@ -70,7 +70,9 @@ def make_dfft(fft_size: int, mesh: sh.Mesh, axis: str = "time",
     per-shard chunks ``[..., r*C]`` in, the list of per-shard spectra out.
     ``dfft.R`` / ``dfft.C`` / ``dfft.r`` expose the factorization.  The
     phase factors are made in the input's complex dtype, once per dtype
-    and shard."""
+    and shard.  Across processes the all-to-alls go through the process
+    group (``sharding.all_to_all``) and ``dfft(x)`` returns this
+    process's shards of the spectrum (``sharding.Sharded``)."""
     n_dev = mesh.axis_size(axis)
     N = int(fft_size)
     if local_radix is not None:
@@ -92,7 +94,7 @@ def make_dfft(fft_size: int, mesh: sh.Mesh, axis: str = "time",
     if R * R >= (1 << 31):
         raise ValueError(f"R = {R} too large for exact stage-1 phases")
 
-    pos = mesh.axis_index(axis)
+    pos = mesh.local_axis_index(axis)
     p = np.arange(R, dtype=np.int64)[:, None]
     u = np.arange(r, dtype=np.int64)[None, :]
     pl = np.arange(r, dtype=np.int64)[:, None]
@@ -102,9 +104,9 @@ def make_dfft(fft_size: int, mesh: sh.Mesh, axis: str = "time",
     def phases_for(dtype):
         if dtype not in tables:
             tables[dtype] = [
-                (_phases(p * (pos[s] * r + u), R, dtype, mesh.devices[s]),
-                 _phases((pos[s] * r + pl) * j, N, dtype, mesh.devices[s]))
-                for s in range(mesh.size)]
+                (_phases(p * (q * r + u), R, dtype, mesh.devices[s]),
+                 _phases((q * r + pl) * j, N, dtype, mesh.devices[s]))
+                for q, s in zip(pos, mesh.local)]
         return tables[dtype]
 
     def local_fn(xs):

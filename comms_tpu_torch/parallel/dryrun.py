@@ -1,5 +1,5 @@
 """Multi-shard dry run: every sharded configuration of the port, one or
-two steps each on small shapes, on an n-shard in-process mesh.
+two steps each on small shapes, on an n-shard mesh in one process.
 
 Counterpart of ``dryrun_multichip`` in the repository's
 ``__graft_entry__.py`` (the JAX package's), with its sizes and
@@ -19,10 +19,12 @@ assertions:
    tail;
 7. the time-sharded QPSK receiver (summed panel estimates + the symbol
    product with ring context);
+8. the multi-process wiring: ``multihost.pod_mesh`` and ``host_feed``
+   feeding the sharded wideband chain, equal bit for bit to the
+   time-mesh path (in one process here; :func:`dryrun_multihost` runs
+   it in every process of a process group, the mesh spanning them);
 9. the 2-D (time x chan) band monitor against the one-device band
    monitor.
-
-Config 8 (multi-host wiring) waits for the port's multi-process layer.
 
     python -m comms_tpu_torch.parallel.dryrun [--shards 8] [--device cuda]
 """
@@ -34,7 +36,7 @@ import torch
 
 from comms_tpu_torch.parallel import sharding as sh
 
-__all__ = ["dryrun_multichip"]
+__all__ = ["dryrun_multichip", "dryrun_multihost"]
 
 
 def _normal(rng, shape, device):
@@ -221,6 +223,41 @@ def _dryrun_qpsk_rx(n, mesh, device):
     assert torch.isfinite(sym).all()
 
 
+def dryrun_multihost(local_shards: int, device="cuda") -> None:
+    """Config 8: ``multihost.pod_mesh`` + ``host_feed`` feeding the sharded
+    wideband chain, equal bit for bit to the plain time-mesh path on the
+    same input (audio and frequency estimate).  Before
+    ``multihost.init`` the pod mesh is this process's ``local_shards``
+    shards and ``host_feed`` takes the whole block; in a process group
+    every process runs this, feeds its time slice and holds its own
+    audio shards against their slices of the time-mesh path, which it
+    runs on the whole block over a mesh of as many shards in this
+    process."""
+    from comms_tpu_torch.models.fm_receiver import FM_LPF_TAPS
+    from comms_tpu_torch.parallel import multihost, wideband
+
+    pmesh = multihost.pod_mesh(local_shards=local_shards, device=device)
+    procs = pmesh.size // len(pmesh.local)
+    rank = pmesh.rank
+    block = pmesh.size * 400
+    cfg = wideband.WidebandConfig(FM_LPF_TAPS, block=block, dec1=5, dec2=5)
+    pairs = _normal(np.random.default_rng(8), (block, 2), device)
+    per = block // procs
+    garr = multihost.host_feed(pairs[rank * per:(rank + 1) * per], pmesh)
+    state = wideband.init_state(cfg, device)
+    (audio_p, freq_p), _ = wideband.make_sharded_step(cfg, pmesh)(state,
+                                                                  garr)
+    tmesh = sh.time_mesh(pmesh.size, device=device)
+    (audio_t, freq_t), _ = wideband.make_sharded_step(cfg, tmesh)(state,
+                                                                  pairs)
+    if isinstance(audio_p, sh.Sharded):
+        assert all(torch.equal(x.data, audio_t[x.index])
+                   for x in audio_p.addressable_shards)
+    else:
+        assert torch.equal(audio_p, audio_t)
+    assert torch.equal(freq_p, freq_t)
+
+
 def _dryrun_mesh2d(n, device):
     """Config 9: the 2-D (time x chan) band monitor, equal to the
     one-device band monitor."""
@@ -248,8 +285,8 @@ def _dryrun_mesh2d(n, device):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """Run configurations 1-7 and 9 on an ``n_devices``-shard
-    in-process mesh on ``device`` (module docstring)."""
+    """Run configurations 1-9 on an ``n_devices``-shard mesh in this
+    process on ``device`` (module docstring)."""
     n = int(n_devices)
     mesh = sh.time_mesh(n, device=device)
     _dryrun_wideband(n, mesh, device)
@@ -259,6 +296,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     _dryrun_planar_kernels(n, mesh, device)
     _dryrun_band_monitor(n, mesh, device)
     _dryrun_qpsk_rx(n, mesh, device)
+    dryrun_multihost(n, device)
     _dryrun_mesh2d(n, device)
 
 

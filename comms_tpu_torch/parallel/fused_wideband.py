@@ -12,7 +12,11 @@ in one launch of the ring kernel) plus the same recompute gives each
 shard the context a sequential run of ``make_fused_block_fn`` over
 per-shard-sized blocks would carry: the two are bit-equal.  Shard 0 uses
 the carried stream state (the ring's wrapped tail is not read); the next
-block's state is recomputed from the global tail.
+block's state is recomputed from the last shard's raw tail, which
+``sharding.collect_ctx`` gives every process (the same bytes as the
+global block's tail).  Across processes (``parallel.multihost``) each
+process runs K1 on its own shards, and the raw tails cross between
+processes through the ring kernel into the neighbours' windows.
 
 :func:`make_sharded_band_monitor_step` composes the fused band-monitor
 kernel (K9) the same way, with ``fm_band_monitor.
@@ -21,11 +25,8 @@ fused_state_from_raw_tail`` of the left neighbour's float32 tail.
 
 from __future__ import annotations
 
-import torch
-
 from comms_tpu_torch.kernels import band_monitor as _BM
 from comms_tpu_torch.kernels import fm_chain as _K
-from comms_tpu_torch.kernels import halo_ring as _HR
 from comms_tpu_torch.models import fm_band_monitor as _M
 from comms_tpu_torch.models import fm_receiver
 from comms_tpu_torch.parallel import sharding as sh
@@ -39,28 +40,10 @@ TAIL_SAMPLES = fm_receiver.FUSED_TAIL_SAMPLES
 fused_init_state = fm_receiver.fused_init_state
 
 
-def _raw_tails(mesh: sh.Mesh, axis, planes, tail: int):
-    """Each shard's left neighbour's last ``tail`` samples of every plane,
-    one launch of the ring kernel for all the planes (the ring wraps;
-    the first shard's entry is not read)."""
-    rings = mesh.rings(axis)
-    if len(rings[0]) == 1:
-        return [[None] * mesh.size for _ in planes]
-    got = _HR.exchange([[p[s] for s in ring] for p in planes
-                        for ring in rings], tail)
-    out = [[None] * mesh.size for _ in planes]
-    k = 0
-    for pi in range(len(planes)):
-        for ring in rings:
-            for s, t in zip(ring, got[k]):
-                out[pi][s] = t
-            k += 1
-    return out
-
-
 def make_sharded_fused_step(mesh: sh.Mesh, block: int, axis: str = "time"):
     """``(state, re_u8[N], im_u8[N]) -> (audio[N/25], state)``, global
-    planes and audio, one K1 launch per shard on CUDA shards.
+    planes and audio (``sharding.Sharded`` values across processes), one
+    K1 launch per shard on CUDA shards.
 
     ``state`` is the fused chain's context dict (:func:`fused_init_state`
     at stream start), interchangeable with the single-device
@@ -78,22 +61,22 @@ def make_sharded_fused_step(mesh: sh.Mesh, block: int, axis: str = "time"):
         raise ValueError(
             f"per-shard length {local_n} must cover the raw context "
             f"tail ({TAIL_SAMPLES})")
-    first = [i == 0 for i in mesh.axis_index(axis)]
+    first = [i == 0 for i in mesh.local_axis_index(axis)]
     taps = fm_receiver.FM_LPF_TAPS
 
     def step(state, re_u8, im_u8):
         res = sh.shard(re_u8, mesh, (axis,))
         ims = sh.shard(im_u8, mesh, (axis,))
-        recv_re, recv_im = _raw_tails(mesh, axis, (res, ims), TAIL_SAMPLES)
+        recv_re, recv_im = sh.ring_tails((res, ims), TAIL_SAMPLES, mesh, axis)
         audio = []
-        for s in range(mesh.size):
-            ctx = (state if first[s] else
-                   fm_receiver.fused_ctx_from_raw_tail(recv_re[s],
-                                                       recv_im[s]))
-            audio.append(_K.fm_chain_fused(res[s], ims[s], ctx, taps, taps))
-        # the next block's stream context: the global raw tail.
-        new_state = fm_receiver.fused_ctx_from_raw_tail(
-            re_u8[-TAIL_SAMPLES:], im_u8[-TAIL_SAMPLES:])
+        for k, f in enumerate(first):
+            ctx = (state if f else
+                   fm_receiver.fused_ctx_from_raw_tail(recv_re[k],
+                                                       recv_im[k]))
+            audio.append(_K.fm_chain_fused(res[k], ims[k], ctx, taps, taps))
+        # the next block's stream context: the last shard's raw tail.
+        tre, tim = sh.collect_ctx((res, ims), TAIL_SAMPLES, mesh, axis)
+        new_state = fm_receiver.fused_ctx_from_raw_tail(tre[0], tim[0])
         return sh.unshard(audio, mesh, (axis,)), new_state
 
     return step
@@ -122,22 +105,22 @@ def make_sharded_band_monitor_step(cfg, mesh: sh.Mesh, block: int,
         raise ValueError(
             f"per-shard length {local_n} must cover the raw context "
             f"tail ({tail})")
-    first = [i == 0 for i in mesh.axis_index(axis)]
+    first = [i == 0 for i in mesh.local_axis_index(axis)]
 
     def step(state, re, im):
         res = sh.shard(re, mesh, (axis,))
         ims = sh.shard(im, mesh, (axis,))
-        recv_re, recv_im = _raw_tails(mesh, axis, (res, ims), tail)
+        recv_re, recv_im = sh.ring_tails((res, ims), tail, mesh, axis)
         audio = []
-        for s in range(mesh.size):
-            st = (state if first[s] else
-                  _M.fused_state_from_raw_tail(cfg, recv_re[s], recv_im[s]))
+        for k, f in enumerate(first):
+            st = (state if f else
+                  _M.fused_state_from_raw_tail(cfg, recv_re[k], recv_im[k]))
             a, *_ = _BM.band_monitor_planar(
-                res[s], ims[s], cfg.prototype, cfg.audio_taps,
+                res[k], ims[k], cfg.prototype, cfg.audio_taps,
                 cfg.audio_dec, *st, num_channels=cfg.num_channels)
             audio.append(a.T)                   # [K, local frames]
-        new_state = _M.fused_state_from_raw_tail(cfg, re[-tail:],
-                                                 im[-tail:])
-        return torch.cat(audio, dim=1), new_state
+        tre, tim = sh.collect_ctx((res, ims), tail, mesh, axis)
+        new_state = _M.fused_state_from_raw_tail(cfg, tre[0], tim[0])
+        return sh.unshard(audio, mesh, (None, axis)), new_state
 
     return step

@@ -36,7 +36,9 @@ __all__ = ["make_sharded_rx_step"]
 def make_sharded_rx_step(cfg: "_rx.QpskRxConfig", mesh: sh.Mesh,
                          axis: str = "time"):
     """Returns ``(re[N], im[N]) -> (sym_planes[2, N/sps], diag)``, global
-    tensors in and out.  ``cfg.sps`` must satisfy the fused core's
+    tensors in and out (across processes ``multihost.host_feed``'s values
+    in, this process's symbol shards out as ``sharding.Sharded``, the
+    estimates on every process).  ``cfg.sps`` must satisfy the fused core's
     constraint (4 <= sps, sps | 128); the per-shard length must be a
     multiple of sps (validated).
 
@@ -50,7 +52,7 @@ def make_sharded_rx_step(cfg: "_rx.QpskRxConfig", mesh: sh.Mesh,
         raise ValueError(f"sharded rx needs 4 <= sps | {lanes}, "
                          f"got {sps}")
     C = _rx.fused_gemm_ctx_len(cfg)
-    pos = mesh.axis_index(axis)
+    pos = mesh.local_axis_index(axis)
 
     def reduce(parts):
         return sh.psum(parts, mesh, axis)[0]
@@ -86,15 +88,15 @@ def make_sharded_rx_step(cfg: "_rx.QpskRxConfig", mesh: sh.Mesh,
         lo = 3 + torch.clamp(shift2, min=0)
         hi = ntot + torch.clamp(shift2, max=0)
         srs, sis = [], []
-        for s in range(mesh.size):
-            phase0 = _rx._two_pi_anchor(f_est, nloc, pos[s])
+        for k, p in enumerate(pos):
+            phase0 = _rx._two_pi_anchor(f_est, nloc, p)
             sr, si = _rx._fused_symbol_gemm(
-                cfg, res[s], ims[s], f_est, lag, shift2,
-                ctx=(ctx_r[s], ctx_i[s]), phase0=phase0)
+                cfg, res[k], ims[k], f_est, lag, shift2,
+                ctx=(ctx_r[k], ctx_i[k]), phase0=phase0)
             # the one-shot core's edge mask, at global positions (head
             # transient on shard 0, shifted-off tail on the last shard)
             m4 = (torch.arange(sr.shape[0], device=sr.device)
-                  + pos[s] * (nloc // sps)) * sps
+                  + p * (nloc // sps)) * sps
             valid = (m4 >= lo) & (m4 < hi)
             srs.append(torch.where(valid, sr, 0.0))
             sis.append(torch.where(valid, si, 0.0))
@@ -103,7 +105,7 @@ def make_sharded_rx_step(cfg: "_rx.QpskRxConfig", mesh: sh.Mesh,
         # the shards' estimator sums added and each shard's global symbol
         # offset anchoring its rotation.
         syms, dtail = _rx._symbol_tail(
-            srs, sis, reduce=reduce, sym_offset=(nloc // sps, pos))
+            srs, sis, reduce=reduce, sym_offset=(nloc // sps, pos, n))
         diag = {"freq": f_est, "timing": t_est, "sym_phase": p_star,
                 **dtail}
         return sh.unshard(syms, mesh, (None, axis)), diag

@@ -2,7 +2,8 @@
 overlap-save halo exchange, and the sharded Welch PSDs.
 
 Counterpart of :mod:`comms_tpu.parallel.wideband` (BASELINE config 5)
-on the port's in-process mesh (:mod:`comms_tpu_torch.parallel.sharding`):
+on the port's mesh (:mod:`comms_tpu_torch.parallel.sharding`), in one
+process or across processes (``parallel.multihost``):
 
     f32 IQ pairs [N, 2], N sharded over the ring
       -> FIR LPF        (halo T-1: the ring kernel)
@@ -14,8 +15,13 @@ on the port's in-process mesh (:mod:`comms_tpu_torch.parallel.sharding`):
 
 Four ring exchanges per step (IQ halo, ``yprev``, FM prev, audio halo),
 each one launch of the ring kernel on CUDA shards.  The steps take and
-return global tensors, so a sharded step is a drop-in ``block_fn`` for
-``runtime.stream.StreamRunner``.
+return global tensors in one process, so a sharded step is a drop-in
+``block_fn`` for ``runtime.stream.StreamRunner``; across processes the
+chain takes ``multihost.host_feed``'s value and returns this process's
+audio shards (``sharding.Sharded``), the estimate and the state on every
+process; the PSD makers take it too (the segment-sharded PSD comes back
+whole on every process, the frequency-sharded ones as this process's
+bins).
 
 The PSD makers: :func:`make_sharded_psd` (the frequency axis sharded,
 the distributed FFT of :mod:`.dfft` inlined), :func:`make_sharded_psd_
@@ -84,8 +90,8 @@ def make_sharded_step(cfg: WidebandConfig, mesh: sh.Mesh,
 
     ``rdma_halo`` is kept so that callers of the JAX signature work: the
     JAX package routes its halos through an XLA ``ppermute`` (False) or a
-    Pallas RDMA ring (True), one contract with bit-equal results.  In one
-    process both values take the same ring kernel."""
+    Pallas RDMA ring (True), one contract with bit-equal results.  Both
+    values take the same ring kernel."""
     del rdma_halo
     n = mesh.axis_size(axis)
     if cfg.block % n:
@@ -94,7 +100,7 @@ def make_sharded_step(cfg: WidebandConfig, mesh: sh.Mesh,
     if local % cfg.dec1 or (local // cfg.dec1) % cfg.dec2:
         raise ValueError("per-shard length must divide by dec1 and dec2")
     T = cfg.num_taps
-    first = [i == 0 for i in mesh.axis_index(axis)]
+    first = [i == 0 for i in mesh.local_axis_index(axis)]
 
     def hx(xs, ctx, halo):
         return sh.halo_exchange(xs, ctx, halo, mesh, axis)
@@ -158,7 +164,7 @@ def _welch_window(fft_size: int, window):
 
 
 def _on_cuda(mesh: sh.Mesh) -> bool:
-    return mesh.devices[0].type == "cuda"
+    return mesh.devices[mesh.local[0]].type == "cuda"
 
 
 def _freq_sharded_psd(fft_size, mesh, axis, w32, scale, local_radix):
@@ -167,9 +173,9 @@ def _freq_sharded_psd(fft_size, mesh, axis, w32, scale, local_radix):
     d = dfft_mod.make_dfft(fft_size, mesh, axis, local_radix=local_radix)
     n = mesh.axis_size(axis)
     local_f = fft_size // n
-    pos = mesh.axis_index(axis)
-    wl = [torch.from_numpy(w32[pos[s] * local_f:(pos[s] + 1) * local_f])
-          .to(mesh.devices[s]) for s in range(mesh.size)]
+    wl = [torch.from_numpy(w32[q * local_f:(q + 1) * local_f])
+          .to(mesh.devices[s])
+          for q, s in zip(mesh.local_axis_index(axis), mesh.local)]
 
     def psd(xs):
         # per-segment mean removal needs the cross-shard mean (psum).

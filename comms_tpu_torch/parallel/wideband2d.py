@@ -76,7 +76,9 @@ def make_sharded_band_monitor_2d(cfg: BandMonitorConfig, mesh: sh.Mesh,
 
     Constraints (validated): ``N % (nt*nc*K) == 0``, ``K % nc == 0``,
     per-row frames ``% audio_dec == 0`` and ``>= MD - 1``, and the
-    per-shard slice must cover the T-1 channelizer halo."""
+    per-shard slice must cover the T-1 channelizer halo.  On a mesh in
+    one process (``sharding.one_process``)."""
+    sh.one_process(mesh, "wideband2d.make_sharded_band_monitor_2d")
     nt, nc = mesh.shape[t_axis], mesh.shape[c_axis]
     K = cfg.num_channels
     T = K * cfg.taps_per_branch

@@ -370,7 +370,7 @@ class Mixer(BlockOp):
         # Shard s starts s * local_n samples into the block: its
         # fixed-point phase is the carried one advanced s times; the
         # stream advances n_shards times.
-        idx = mesh.axis_index(axis)
+        idx = mesh.local_axis_index(axis)
         n = mesh.axis_size(axis)
         ys = []
         for s, x in enumerate(xs):
@@ -413,10 +413,11 @@ class Nco(BlockOp):
         adv = float(np.mod(np.float64(local_n)
                            * np.float64(_mixer.normalize_dphase(self.dphase)),
                            _TWO_PI))
-        idx = mesh.axis_index(axis)
+        idx = mesh.local_axis_index(axis)
         n = mesh.axis_size(axis)
         totals = [torch.sum(p) for p in perrs]
-        all_t = torch.stack([t.to(perrs[0].device) for t in totals])
+        all_t = torch.stack([t.to(perrs[0].device)
+                             for t in _sh.all_gather(totals, mesh)])
         two_pi = np.float32(_TWO_PI)
         ar = torch.arange(n, device=all_t.device)
         ys = []
@@ -687,7 +688,7 @@ class _SourceOp(BlockOp):
             raise ValueError(f"{type(self).__name__} block {B} not "
                              f"divisible across {n} shards")
         local = B // n
-        idx = mesh.axis_index(axis)
+        idx = mesh.local_axis_index(axis)
         return [y_full[i * local:(i + 1) * local] for i in idx], new_state
 
 
@@ -716,7 +717,7 @@ class PrnSource(_SourceOp):
         n = mesh.axis_size(axis)
         if n == 1:
             bits, new = self.apply(state)
-            return [bits] * mesh.size, new
+            return [bits] * len(mesh.local), new
         spec = self.spec
         local = spec.block // n
         dev = state.device
@@ -726,7 +727,7 @@ class PrnSource(_SourceOp):
         A_blk = _build.device_constant(spec.adv_matrix, dev)
         s = state.to(torch.float32)
         ys = []
-        for i in mesh.axis_index(axis):
+        for i in mesh.local_axis_index(axis):
             s_shard = torch.remainder(shift[i] @ s, 2)
             ys.append(torch.remainder(M_local @ s_shard, 2).to(torch.int8))
         return ys, torch.remainder(A_blk @ s, 2).to(torch.int8)

@@ -216,7 +216,9 @@ class Graph:
         Raw callables run per shard with no collectives, so they must be
         declared ``elementwise=True``; undeclared ones raise here rather
         than silently computing per-shard values (e.g. a reduction over
-        a feedback edge)."""
+        a feedback edge).  Across processes, inputs as
+        ``Pipeline.make_sharded_step``'s; outputs and feedback slots are
+        ``sharding.Sharded`` values of this process's shards."""
         for spec in self._nodes.values():
             if spec.feedback or isinstance(spec.op, BlockOp):
                 continue
@@ -232,11 +234,12 @@ class Graph:
 
         def op_apply(op, st, x):
             if isinstance(x, tuple):      # multi-input op: per-shard tuples
-                x = [tuple(v[s] for v in x) for s in range(mesh.size)]
+                x = [tuple(v[s] for v in x) for s in range(len(mesh.local))]
             return op.shard_apply(st, x, mesh, axis)
 
         def call_raw(fn, ins):
-            return [fn(*(v[s] for v in ins)) for s in range(mesh.size)]
+            return [fn(*(v[s] for v in ins))
+                    for s in range(len(mesh.local))]
 
         local = self._make_step(op_apply, call_raw)
 

@@ -10,8 +10,8 @@ Counterpart of :mod:`comms_tpu.runtime.pipeline`:
 The state is a tuple with one entry per op (the JAX state's structure).
 ``run`` is a loop over blocks that equals repeated ``step`` bit for bit
 (the JAX package's ``lax.scan``).  ``make_sharded_step`` runs every op
-through its ``shard_apply`` hook over an in-process mesh
-(:mod:`comms_tpu_torch.parallel.sharding`).
+through its ``shard_apply`` hook over a mesh, in one process or across
+processes (:mod:`comms_tpu_torch.parallel.sharding`).
 """
 
 from __future__ import annotations
@@ -99,7 +99,10 @@ class Pipeline:
 
         Returns ``(state, x[N, ...]) -> (y, state)`` over global tensors
         (``x=None`` for a source-headed pipeline).  With ``block`` the
-        per-shard sizes are checked up front.
+        per-shard sizes are checked up front.  Across processes the
+        input is ``multihost.host_feed``'s value (or a global tensor every
+        process holds) and the output this process's shards
+        (``sharding.Sharded``); the state is whole on every process.
         """
         n_dev = mesh.axis_size(axis)
         if block is not None:

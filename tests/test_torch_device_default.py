@@ -29,6 +29,7 @@ from comms_tpu_torch.ops import prns as tprns
 from comms_tpu_torch.ops import pulse as tpulse
 from comms_tpu_torch.ops import random as trand
 from comms_tpu_torch.parallel import dryrun as tdry
+from comms_tpu_torch.parallel import multihost as tmh
 from comms_tpu_torch.parallel import scaling as tscal
 from comms_tpu_torch.parallel import sharding as tsh
 from comms_tpu_torch.parallel import wideband as twb
@@ -237,6 +238,10 @@ ENTRY_POINTS = {
         lambda _: tres.rational_resample_init([np.ones((2, 2))])),
     "parallel.dryrun.dryrun_multichip": (
         tdry.dryrun_multichip, lambda _: tdry.dryrun_multichip(2)),
+    "parallel.dryrun.dryrun_multihost": (
+        tdry.dryrun_multihost, lambda _: tdry.dryrun_multihost(2)),
+    "parallel.multihost.pod_mesh": (tmh.pod_mesh,
+                                    lambda _: tmh.pod_mesh(local_shards=2)),
 }
 
 

@@ -117,7 +117,7 @@ def test_exchange_validations():
         HR.ring_halo_exchange(xs, 2, ctx=torch.zeros(3))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         HR.ring_halo_exchange([torch.zeros(4, device="meta")] * 2, 1)
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="one process per card"):
         HR.ring_halo_exchange([torch.zeros(4), torch.zeros(4, device="meta")],
                               1)
 
@@ -140,7 +140,7 @@ def test_sharding_halo_rules():
 
 
 def test_multi_card_mesh_raises():
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="one process per card"):
         tsh.Mesh(["cuda:0", "cuda:1"], (2,), ("time",))
 
 

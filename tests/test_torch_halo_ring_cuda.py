@@ -139,7 +139,7 @@ def test_multi_card_ring_raises(card):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     xs = [torch.zeros(8, device="cuda:0"), torch.zeros(8, device="cuda:1")]
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="one process per card"):
         HR.ring_halo_exchange(xs, 2)
 
 

@@ -152,7 +152,7 @@ def test_package_imports_no_jax():
                  "parallel.dfft", "parallel.wideband",
                  "parallel.fused_wideband", "parallel.wideband2d",
                  "parallel.qpsk_rx_sharded", "parallel.scaling",
-                 "parallel.dryrun",
+                 "parallel.dryrun", "parallel.multihost",
                  "native", "native.loader", "io.audio",
                  "models.play_audio", "hardware", "hardware.radio",
                  "hardware.rtlsdr", "examples", "examples._cli",
