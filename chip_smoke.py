@@ -4,7 +4,7 @@ receiver, the wideband FM band monitor, the QPSK receiver, FFT and Welch
 spectrum monitoring, the sharded layer on an 8-shard mesh of the card,
 the BPSK and QPSK transmitters, the QPSK link, the file edges (the
 native block reader, audio, the file-replay radio and the examples),
-and the sharded layer across two processes on the card.
+and the sharded layer across two and four processes on the card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -200,24 +200,36 @@ Phases (each raises on failure, so any failure exits non-zero):
    files against the CPU's, qpsk_zmq's received samples against the
    transmitter's blocks, the PSD's carriers, the sharded FM stream bit
    for bit).
-22. two processes on the card (``parallel.multihost``, gloo; each
-   started as ``chip_smoke.py --pod-worker RANK PORT DIR`` with a
-   timeout, its output read; one that exits non-zero, times out or
-   prints no OK line fails the run), 4 shards each of an 8-shard pod
-   mesh, each program against the 8-shard mesh in one process bit for
-   bit: the psum; K12's cross-process form at the fused raw tails
-   (25,669-byte u8 tails, the ring wrapped, 3 calls, a cross-process
-   launch a call on each rank) against the exchange in one process; the
-   fused FM step at 26,214,400 samples, 3 blocks chained from stream
-   start (the counts at 0 before, K1 4 a block a rank, K12 1 and 2 a
-   block; audio and state written by the workers and compared here);
-   the wideband chain at 26,214,400 and the QPSK receiver at 2^25 (K5
-   per shard); dry-run config 8 across the processes.  It prints K12's
-   cross-process device ms and host µs a call (and the gloo barrier's
-   alone) beside its plain version (gloo on host tensors), the fused
-   step's wall ms a block on 2 processes beside one process x 8 shards,
-   and each worker's seconds, each beside the card's name and power
-   limit; K12's cross-process row joins the kernel table.
+22. worker processes on the card (``parallel.multihost``, gloo; each
+   started as ``chip_smoke.py --pod-worker RANK PROCS LOCAL PORT DIR``
+   with a timeout, its output read; one that exits non-zero, times out
+   or prints no OK line fails the run), in two spawns, each program
+   against the same program on a mesh of as many shards in one process,
+   bit for bit.  First 2 processes x 4 shards of an 8-shard pod mesh:
+   the psum; K12's cross-process form at the fused raw tails (25,669-byte
+   u8 tails, the ring wrapped, 3 calls, a cross-process launch a call on
+   each rank) against the exchange in one process; the fused FM step at
+   26,214,400 samples, 3 blocks chained from stream start (the counts at
+   0 before, K1 4 a block a rank, K12 1 and 2 a block; audio and state
+   written by the workers and compared here); the wideband chain at
+   26,214,400 and the QPSK receiver at 2^25 (K5 per shard); the
+   frequency-sharded PSD at 2^20 x 32, its dfft's two all-to-alls on K12
+   (one cross-process launch each a rank); dry-run config 8 across the
+   processes.  Then 4 processes x 2 shards.  Both spawns run the 2-D
+   band monitor at 16,777,216 samples, K = 16, on a 2 x 4 ``mesh_2d``
+   laid over the processes, 2 blocks chained (counts at 0 before: K8 and
+   K2 once a local shard a block, K12's cross-process launches those of
+   ``band2d_crossings``, the corner turn's counted apart: none at 2 x 4,
+   one a block a rank at 4 x 2, where each time row spans two
+   processes).  The second spawn also times one corner turn at the 2-D
+   step's shapes on the device route beside the gloo route (host copies).
+   It prints K12's cross-process device ms and host µs a call (and the
+   gloo barrier's alone) beside its plain version (gloo on host
+   tensors), the fused step's and the 2-D step's wall ms a block on the
+   processes beside one process x 8 shards, the corner turn's host µs
+   and device span beside gloo, and each worker's seconds, each beside
+   the card's name and power limit; K12's cross-process rows (the halo,
+   the all-to-all) join the kernel table.
 
 The inputs are synthetic captures made from fixed seeds (numpy for the
 FM receiver, torch on the card for the band monitor, numpy bits and
@@ -4210,64 +4222,162 @@ def edge_examples(dev, card: str, iq: np.ndarray, w: np.ndarray) -> None:
     line("fused_sharded_fm", secs, got, "sharded == sequential bit for bit")
 
 
-# Phase 22, the multi-process slice: 2 processes on the one card (two
-# CUDA contexts, time-sliced), 4 shards each of an 8-shard pod mesh
-# (parallel.multihost), against the same programs on an 8-shard mesh in
-# one process, bit for bit: the psum, K12's cross-process form at the fused
-# FM raw tails (3 calls), the fused FM step at BLOCK (3 blocks chained from
-# stream start: its audio and state compared in this process), the
-# wideband chain at BLOCK (2^25 does not divide by the chain's 25) and the
-# QPSK receiver at QPSK_N, and dry-run config 8.
+# Phase 22, the multi-process slice, in two spawns of worker processes on
+# the one card (CUDA contexts time-sliced), each program against the same
+# program on a mesh of as many shards in one process, bit for bit.  The
+# first spawn, 2 processes x 4 shards of an 8-shard pod mesh: the psum,
+# K12's cross-process form at the fused FM raw tails (3 calls), the fused
+# FM step at BLOCK (3 blocks chained from stream start: its audio and
+# state compared in this process), the wideband chain at BLOCK (2^25 does
+# not divide by the chain's 25) and the QPSK receiver at QPSK_N, the
+# frequency-sharded PSD at BIG[0] (the dfft's two all-to-alls across the
+# processes on K12), dry-run config 8.  Both spawns, 2 x 4 and then 4
+# processes x 2 shards: the 2-D band monitor at BM_BLOCK, K = BM_K, on a
+# 2 x 4 mesh_2d laid over the processes, two blocks chained (in the 4 x 2
+# layout each time row spans two processes and the corner turn crosses).
+# The 4 x 2 spawn also times one corner turn at the 2-D step's shapes on
+# the device route beside the gloo route.
 POD_PROCS = 2
 POD_LOCAL = 4
+POD4_PROCS = 4
+POD4_LOCAL = 2
 POD_DEVICE = "cuda"
 POD_BLOCKS = 3
+POD_BM_BLOCKS = 2
 POD_SEED = 45
 POD_TIMEOUT_S = 300
 POD_K12_REPS = 21
 POD_K12_HOST_CALLS = 100
+POD_CT_HOST_CALLS = 20
 
 
-def pod_worker(rank: int, port: int, out: Path) -> None:
-    """One process of phase 22 (``chip_smoke.py --pod-worker RANK PORT
-    DIR``): joins the process group, runs each program over the pod mesh
-    and over an 8-shard mesh in this process, holds its own shards bit for
-    bit, writes its fused FM audio and state to ``DIR``, prints one
-    ``POD_WORKER`` JSON line of counts and times, then ``POD_WORKER_OK``.
-    Any disagreement exits non-zero.  The FM capture comes from the
-    parent (``DIR/fm_u8.npy``): made on each card apart, the float64
-    cumulative sum of its phase may round otherwise in the last bit; the
-    QPSK capture (no scan) is made here and its checksum held equal
-    across the processes."""
+def same_shards(rank: int, got, want, what: str) -> None:
+    """Each of this process's shards of ``got`` (a Sharded value) equals
+    its slice of the one-process ``want``, bit for bit."""
+    import torch
+
+    for s in got.addressable_shards:
+        if not torch.equal(s.data, want[s.index]):
+            fail(f"rank {rank}: {what}: shard {s.index} differs from the "
+                 f"mesh in one process")
+
+
+def same_everywhere(rank: int, tensors, what: str) -> None:
+    """The tensors' integer checksums agree in every process (an input
+    made in each process from one seed)."""
+    import torch
+    import torch.distributed
+
+    mine = [int(t.reshape(-1).view(torch.int32).to(torch.int64).sum())
+            for t in tensors]
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, mine)
+    if any(x != mine for x in every):
+        fail(f"rank {rank}: {what} differ between processes")
+
+
+def band2d_crossings(mesh) -> dict:
+    """For each collective of one 2-D band monitor step, 1 where this
+    process sends a pair into another process's window (then K12 launches
+    once for it: every call here has fewer than 128 pairs), else 0.  The
+    mesh is (time, chan), row-major."""
+    own, nc, size = mesh.owners, mesh.shape["chan"], mesh.size
+    me = mesh.rank
+    mine = mesh.local
+    rows = int(any(s + nc < size and own[s + nc] != me for s in mine))
+    return {
+        "channelizer_halo": int(any(s + 1 < size and own[s + 1] != me
+                                    for s in mine)),
+        "stream_ctx": int(size - 1 in mine and len(set(own)) > 1),
+        "corner_turn": int(any(own[s // nc * nc + c] != me for s in mine
+                               for c in range(nc))),
+        "demod_halo": rows, "audio_halo": rows}
+
+
+class counted_all_to_all:
+    """Inside the block ``sharding.all_to_all`` adds the cross-process K12
+    launches it makes to ``self.cross`` (the corner turn's and the dfft's
+    share of ``halo_ring.cross_launches``)."""
+
+    def __enter__(self):
+        from comms_tpu_torch.kernels import halo_ring as HR
+        from comms_tpu_torch.parallel import sharding as sh
+
+        self.cross, self._sh, self._real = 0, sh, sh.all_to_all
+
+        def counted(*args, **kwargs):
+            c0 = HR.cross_launches
+            out = self._real(*args, **kwargs)
+            self.cross += HR.cross_launches - c0
+            return out
+        sh.all_to_all = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._sh.all_to_all = self._real
+
+
+def pod_worker(rank: int, procs: int, local: int, port: int,
+               out: Path) -> None:
+    """One process of phase 22 (``chip_smoke.py --pod-worker RANK PROCS
+    LOCAL PORT DIR``): joins the process group of ``procs`` processes,
+    runs the spawn's programs (the phase's comment above) over meshes of
+    ``local`` shards a process and over meshes of as many shards in this
+    process, holds its own shards bit for bit, writes its fused FM audio
+    and state to ``DIR``, prints one ``POD_WORKER`` JSON line of counts
+    and times, then ``POD_WORKER_OK``.  Any disagreement exits non-zero.
+    The captures whose phase is a float64 cumulative sum (the FM
+    capture, the band monitor's stations) come from the parent
+    (``DIR/*.npy``): made on each card apart they may round otherwise in
+    the last bit; the others are made here from one seed and their
+    checksums held equal across the processes."""
+    import torch
+
+    from comms_tpu_torch.parallel import dryrun, multihost
+
+    t_start = time.perf_counter()
+    multihost.init(f"127.0.0.1:{port}", procs, rank)
+    mesh = multihost.pod_mesh(local_shards=local, device=POD_DEVICE)
+    dev = mesh.devices[mesh.local[0]]
+    rep = {"rank": rank, "procs": procs, "device": str(dev)}
+    first = (procs, local) == (POD_PROCS, POD_LOCAL)
+    if first:
+        pod_time_programs(rank, mesh, dev, out, rep)
+        pod_psd(rank, mesh, dev, rep)
+    pod_band2d(rank, procs, dev, out, rep)
+    if not first:
+        pod_corner_turn(rank, dev, rep)
+    else:
+        dryrun.dryrun_multihost(local, dev)      # config 8 across processes
+    torch.cuda.synchronize()
+    rep["seconds"] = time.perf_counter() - t_start
+    print("POD_WORKER " + json.dumps(rep), flush=True)
+    multihost.shutdown()
+    print(f"POD_WORKER_OK {rank}", flush=True)
+
+
+def pod_time_programs(rank: int, mesh, dev, out: Path, rep: dict) -> None:
+    """The first spawn's programs on the 8-shard pod mesh: the psum, K12
+    across processes, the fused FM step, the wideband chain, the QPSK
+    receiver."""
     import torch
     import torch.distributed
 
     from comms_tpu_torch.kernels import halo_ring as HR
     from comms_tpu_torch.models import fm_receiver as fm
     from comms_tpu_torch.models import qpsk_rx as trx
-    from comms_tpu_torch.parallel import dryrun, multihost
     from comms_tpu_torch.parallel import fused_wideband as fw
+    from comms_tpu_torch.parallel import multihost
     from comms_tpu_torch.parallel import qpsk_rx_sharded as qs
     from comms_tpu_torch.parallel import sharding as sh
     from comms_tpu_torch.parallel import wideband as wb
 
-    t_start = time.perf_counter()
-    multihost.init(f"127.0.0.1:{port}", POD_PROCS, rank)
-    mesh = multihost.pod_mesh(local_shards=POD_LOCAL, device=POD_DEVICE)
-    dev = mesh.devices[mesh.local[0]]
     one = sh.time_mesh(mesh.size, device=dev)
-    rep = {"rank": rank, "device": str(dev)}
     tail = fm.FUSED_TAIL_SAMPLES
 
     def mine(x):
         per = x.shape[0] // POD_PROCS
         return multihost.host_feed(x[rank * per:(rank + 1) * per], mesh)
-
-    def same_shards(got, want, what):
-        for s in got.addressable_shards:
-            if not torch.equal(s.data, want[s.index]):
-                fail(f"rank {rank}: {what}: shard {s.index} differs from "
-                     f"the mesh in one process")
 
     # ---- the psum: every shard's part summed in shard order
     tot = sh.psum([torch.tensor(float(s), device=dev) for s in mesh.local],
@@ -4381,7 +4491,7 @@ def pod_worker(rank: int, port: int, out: Path) -> None:
     rep["wideband_launches"] = launched()
     (a_1, f_1), st_1 = wb.make_sharded_step(cfg, one)(wb.init_state(cfg, dev),
                                                       pairs)
-    same_shards(a_p, a_1, "wideband audio")
+    same_shards(rank, a_p, a_1, "wideband audio")
     if not (torch.equal(f_p, f_1)
             and all(torch.equal(x, y) for x, y in zip(st_p, st_1))):
         fail(f"rank {rank}: wideband estimate or state differs")
@@ -4389,18 +4499,14 @@ def pod_worker(rank: int, port: int, out: Path) -> None:
 
     # ---- the QPSK receiver at QPSK_N (K5 per shard)
     qre, qim, _ = qpsk_capture(dev, seed=7)
-    sums = [None] * POD_PROCS
-    torch.distributed.all_gather_object(sums, [
-        int(p.view(torch.int32).to(torch.int64).sum()) for p in (qre, qim)])
-    if any(x != sums[0] for x in sums):
-        fail(f"rank {rank}: the QPSK captures differ between processes")
+    same_everywhere(rank, (qre, qim), "the QPSK captures")
     qcfg = trx.QpskRxConfig()
     zero_counts()
     sym_p, d_p = qs.make_sharded_rx_step(qcfg, mesh)(mine(qre), mine(qim))
     torch.cuda.synchronize()
     rep["qpsk_launches"] = launched()
     sym_1, d_1 = qs.make_sharded_rx_step(qcfg, one)(qre, qim)
-    same_shards(sym_p, sym_1, "QPSK symbols")
+    same_shards(rank, sym_p, sym_1, "QPSK symbols")
     if d_p.keys() != d_1.keys() or not all(torch.equal(d_p[k], d_1[k])
                                            for k in d_p):
         fail(f"rank {rank}: QPSK estimates differ")
@@ -4411,28 +4517,251 @@ def pod_worker(rank: int, port: int, out: Path) -> None:
         fail(f"rank {rank}: QPSK launches {rep['qpsk_launches']}")
     del qre, qim, sym_p, sym_1
 
-    # ---- dry-run config 8 across the processes
-    dryrun.dryrun_multihost(POD_LOCAL, dev)
+
+
+def pod_psd(rank: int, mesh, dev, rep: dict) -> None:
+    """The frequency-sharded PSD (the dfft route) at BIG[0] across the
+    processes against the 8-shard mesh in this process, bit for bit; the
+    dfft's two all-to-alls cross on K12, one cross-process launch each on
+    every rank."""
+    import torch
+
+    from comms_tpu_torch.kernels import halo_ring as HR
+    from comms_tpu_torch.parallel import sharding as sh
+    from comms_tpu_torch.parallel import wideband as wb
+
+    F, B = BIG[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(POD_SEED + 1)
+    pairs = (torch.randn(2, B, F, generator=g, device=dev) + 0.05).permute(
+        1, 2, 0).contiguous()                             # [B, F, 2]
+    same_everywhere(rank, (pairs,), "the PSD's segments")
+    psd = wb.make_sharded_psd(F, mesh)
+    zero_counts()
+    HR.cross_launches = 0
+    with counted_all_to_all() as a2a:
+        got = psd(pairs)
     torch.cuda.synchronize()
-    rep["seconds"] = time.perf_counter() - t_start
-    print("POD_WORKER " + json.dumps(rep), flush=True)
-    multihost.shutdown()
-    print(f"POD_WORKER_OK {rank}", flush=True)
+    rep["psd"] = {"launches": launched(), "cross_launches": HR.cross_launches,
+                  "all_to_all_cross": a2a.cross}
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psd(pairs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rep["psd"]["ms"] = statistics.median(walls)
+    same_shards(rank, got, wb.make_sharded_psd(
+        F, sh.time_mesh(mesh.size, device=dev))(pairs),
+        "frequency-sharded PSD")
+    if a2a.cross != 2 or rep["psd"]["cross_launches"] != 2:
+        fail(f"rank {rank}: the dfft's all-to-alls made {a2a.cross} "
+             f"cross-process K12 launches of {rep['psd']['cross_launches']},"
+             f" expected 2")
+
+
+def pod_band2d(rank: int, procs: int, dev, out: Path, rep: dict) -> None:
+    """The 2-D band monitor at BM_BLOCK, K = BM_K on a 2 x 4 mesh_2d laid
+    over the processes, POD_BM_BLOCKS blocks chained from stream start fed
+    through ``host_feed`` over ("time", "chan"), against the same blocks on
+    a 2 x 4 mesh in this process, bit for bit: audio and power shards, the
+    state whole.  Counts from 0 just before: K8 and K2 once a local shard a
+    block, K12's cross-process launches those of ``band2d_crossings``
+    (the corner turn's counted apart)."""
+    import torch
+
+    from comms_tpu_torch.kernels import halo_ring as HR
+    from comms_tpu_torch.models import fm_band_monitor as bm
+    from comms_tpu_torch.parallel import multihost
+    from comms_tpu_torch.parallel import sharding as sh
+    from comms_tpu_torch.parallel import wideband2d as w2
+
+    pairs = torch.from_numpy(np.load(out / "bm_pairs.npy")).to(dev)
+    cfg = bm.BandMonitorConfig(num_channels=BM_K, block=BM_BLOCK)
+    m2 = w2.mesh_2d(2, 4, device=POD_DEVICE)
+    step = w2.make_sharded_band_monitor_2d(cfg, m2)
+    per = BM_BLOCK // procs
+    blocks = [pairs[b * BM_BLOCK:(b + 1) * BM_BLOCK]
+              for b in range(POD_BM_BLOCKS)]
+    feeds = [multihost.host_feed(x[rank * per:(rank + 1) * per], m2,
+                                 ("time", "chan")) for x in blocks]
+
+    def run():
+        st, outs = bm.init_state(cfg, dev), []
+        for f in feeds:
+            o, st = step(st, f)
+            outs.append(o)
+        return outs, st
+
+    zero_counts()
+    HR.cross_launches = 0
+    with counted_all_to_all() as a2a:
+        outs, st = run()
+    torch.cuda.synchronize()
+    counts = launched()
+    cross = HR.cross_launches
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / POD_BM_BLOCKS)
+    ref = w2.make_sharded_band_monitor_2d(
+        cfg, sh.Mesh([dev] * m2.size, (2, 4), ("time", "chan")))
+    st1 = bm.init_state(cfg, dev)
+    for b, ((a, pw), x) in enumerate(zip(outs, blocks)):
+        (a1, pw1), st1 = ref(st1, x)
+        if (a.shape != (BM_K, BM_BLOCK // BM_K // cfg.audio_dec)
+                or pw.shape != (BM_K,)):
+            fail(f"rank {rank}: 2-D band monitor shapes {a.shape}, "
+                 f"{pw.shape}")
+        same_shards(rank, a, a1, f"2-D band monitor audio, block {b}")
+        same_shards(rank, pw, pw1, f"2-D band monitor power, block {b}")
+    if not all(torch.equal(x, y) for x, y in zip(st, st1)):
+        fail(f"rank {rank}: 2-D band monitor state differs from the mesh "
+             f"in one process")
+    if not all(torch.isfinite(s.data).all() for o in outs for v in o
+               for s in v.addressable_shards):
+        fail(f"rank {rank}: 2-D band monitor output not finite")
+    crossings = band2d_crossings(m2)
+    n_local = len(m2.local)
+    expect = {"channelizer": POD_BM_BLOCKS * n_local,
+              "decim_fir": POD_BM_BLOCKS * n_local}
+    if ({k: counts.get(k) for k in expect} != expect
+            or set(counts) - {"channelizer", "decim_fir", "halo_ring"}
+            or not counts.get("halo_ring")
+            or cross != POD_BM_BLOCKS * sum(crossings.values())
+            or a2a.cross != POD_BM_BLOCKS * crossings["corner_turn"]
+            or not cross):
+        fail(f"rank {rank}: 2-D band monitor launches {counts}, "
+             f"cross-process K12 {cross} (all-to-all {a2a.cross}); "
+             f"expected {expect}, crossings a block {crossings}")
+    if procs == POD4_PROCS and not a2a.cross:
+        fail(f"rank {rank}: the corner turn did not cross processes")
+    rep["band2d"] = {"launches": counts, "cross_launches": cross,
+                     "corner_turn_cross": a2a.cross,
+                     "ms_a_block": statistics.median(walls)}
+
+
+def pod_corner_turn(rank: int, dev, rep: dict) -> None:
+    """One corner turn at the 2-D step's shapes (both planes of [BM_BLOCK /
+    (8 BM_K), BM_K] float32 a shard, in one call) on the 2 x 4 mesh_2d
+    across the processes: against the mesh in this process bit for bit,
+    one cross-process K12 launch a call; its host us a call and its device
+    span (events on this rank's stream) beside the gloo route, the same
+    call on host copies of the shards (``halo_ring.transfer_plain``)."""
+    import torch
+
+    from comms_tpu_torch.kernels import halo_ring as HR
+    from comms_tpu_torch.parallel import sharding as sh
+    from comms_tpu_torch.parallel import wideband2d as w2
+
+    m2 = w2.mesh_2d(2, 4, device=POD_DEVICE)
+    one = sh.Mesh([dev] * m2.size, (2, 4), ("time", "chan"))
+    fl = BM_BLOCK // (m2.size * BM_K)
+    g = torch.Generator(device=dev)
+    g.manual_seed(POD_SEED + 2)
+    planes = torch.randn(2, m2.size, fl, BM_K, generator=g, device=dev)
+    same_everywhere(rank, (planes,), "the corner turn's planes")
+    mine = tuple([p[s] for s in m2.local] for p in planes)
+    want = sh.corner_turn(tuple(list(p.unbind(0)) for p in planes), one,
+                          "chan")
+    HR.cross_launches = 0
+    got = sh.corner_turn(mine, m2, "chan")
+    torch.cuda.synchronize()
+    if HR.cross_launches != 1:
+        fail(f"rank {rank}: a corner turn made {HR.cross_launches} "
+             f"cross-process K12 launches, expected 1")
+    host = tuple([x.cpu() for x in p] for p in mine)
+    got_host = sh.corner_turn(host, m2, "chan")
+    for p in range(2):
+        for k, s in enumerate(m2.local):
+            if not (torch.equal(got[p][k], want[p][s])
+                    and torch.equal(got_host[p][k], want[p][s].cpu())):
+                fail(f"rank {rank}: the corner turn across processes "
+                     f"differs at plane {p}, shard {s}")
+    spans = []
+    for _ in range(POD_K12_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        sh.corner_turn(mine, m2, "chan")
+        b.record()
+        b.synchronize()
+        spans.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(POD_CT_HOST_CALLS):
+        sh.corner_turn(mine, m2, "chan")
+    host_us = (time.perf_counter() - t0) / POD_CT_HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    gloo = []
+    for _ in range(POD_K12_REPS):
+        t0 = time.perf_counter()
+        sh.corner_turn(host, m2, "chan")
+        gloo.append((time.perf_counter() - t0) * 1e3)
+    nc = m2.shape["chan"]
+    crossing = sum(1 for s in m2.local for c in range(nc)
+                   if m2.owners[s // nc * nc + c] != rank)
+    rep["corner_turn"] = {
+        "device_ms": statistics.median(spans), "host_us": host_us,
+        "gloo_ms": statistics.median(gloo), "pairs_sent": 2 * crossing,
+        "block_bytes": fl * BM_K // nc * 4,
+        "bytes_in_out": 2 * planes.numel() * planes.element_size()}
+
+
+def spawn_pod(procs: int, local: int, tmp: str) -> list:
+    """Start ``procs`` workers of ``local`` shards each, wait for them
+    (each with POD_TIMEOUT_S), fail the run on any that exits non-zero,
+    times out or prints no OK line; returns their JSON reports."""
+    port = free_port()
+    workers = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--pod-worker",
+         str(r), str(procs), str(local), str(port), tmp], cwd=str(REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(procs)]
+    outs = []
+    try:
+        for w in workers:
+            outs.append((w.communicate(timeout=POD_TIMEOUT_S)[0],
+                         w.returncode))
+    except subprocess.TimeoutExpired:
+        for w in workers:
+            w.kill()
+        for w in workers:
+            w.communicate()
+        fail(f"phase 22: a worker of {procs} x {local} ran past "
+             f"{POD_TIMEOUT_S} s")
+    reps = []
+    for r, (o, rc) in enumerate(outs):
+        if rc != 0 or f"POD_WORKER_OK {r}" not in o:
+            fail(f"phase 22: worker {r} of {procs} x {local} exited {rc}:"
+                 f"\n{o[-4000:]}")
+        line = [x for x in o.splitlines() if x.startswith("POD_WORKER {")]
+        reps.append(json.loads(line[-1][len("POD_WORKER "):]))
+        print(f"[worker {r} of {procs} x {local}] "
+              f"{line[-1][len('POD_WORKER '):]}")
+    return reps
 
 
 def multiprocess_phase(dev, card: str) -> list:
-    """Phase 22: 2 worker processes on the card (``pod_worker``), each
-    with a timeout and its output read; any worker that exits non-zero,
-    times out or prints no OK line fails the run.  Their fused FM audio
-    and states against the 8-shard mesh in this process, bit for bit; the
-    times beside the card; K12's cross-process row of the kernel table."""
+    """Phase 22: the two spawns of worker processes on the card
+    (``spawn_pod``).  The first spawn's fused FM audio and states against
+    the 8-shard mesh in this process, bit for bit; the times beside the
+    card; K12's cross-process rows of the kernel table (the halo and the
+    all-to-all)."""
     import gc
 
     import torch
 
+    from comms_tpu_torch.models import fm_band_monitor as bm
     from comms_tpu_torch.models import fm_receiver as fm
     from comms_tpu_torch.parallel import fused_wideband as fw
     from comms_tpu_torch.parallel import sharding as sh
+    from comms_tpu_torch.parallel import wideband2d as w2
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4440,30 +4769,15 @@ def multiprocess_phase(dev, card: str) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         re, im = fm_u8_planes(POD_BLOCKS * BLOCK, POD_SEED, dev)
         np.save(Path(tmp) / "fm_u8.npy", torch.stack([re, im]).cpu().numpy())
-        port = free_port()
-        workers = [subprocess.Popen(
-            [sys.executable, str(REPO / "chip_smoke.py"), "--pod-worker",
-             str(r), str(port), tmp], cwd=str(REPO), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(POD_PROCS)]
-        outs = []
-        try:
-            for w in workers:
-                outs.append((w.communicate(timeout=POD_TIMEOUT_S)[0],
-                             w.returncode))
-        except subprocess.TimeoutExpired:
-            for w in workers:
-                w.kill()
-            for w in workers:
-                w.communicate()
-            fail(f"phase 22: a worker ran past {POD_TIMEOUT_S} s")
-        reps = []
-        for r, (o, rc) in enumerate(outs):
-            if rc != 0 or f"POD_WORKER_OK {r}" not in o:
-                fail(f"phase 22: worker {r} exited {rc}:\n{o[-4000:]}")
-            line = [x for x in o.splitlines() if x.startswith("POD_WORKER {")]
-            reps.append(json.loads(line[-1][len("POD_WORKER "):]))
-            print(f"[worker {r}] {line[-1][len('POD_WORKER '):]}")
+        bre, bim, _ = station_capture(POD_BM_BLOCKS * BM_BLOCK, BM_K, 44, dev)
+        bpairs = torch.stack([bre, bim], -1)
+        np.save(Path(tmp) / "bm_pairs.npy", bpairs.cpu().numpy())
+        del bre, bim
+        reps = spawn_pod(POD_PROCS, POD_LOCAL, tmp)
         wall_s = time.perf_counter() - t0
+        t4 = time.perf_counter()
+        reps4 = spawn_pod(POD4_PROCS, POD4_LOCAL, tmp)
+        wall4_s = time.perf_counter() - t4
 
         # the one-process 8-shard mesh on the same blocks
         blocks = [(re[b * BLOCK:(b + 1) * BLOCK],
@@ -4498,6 +4812,26 @@ def multiprocess_phase(dev, card: str) -> list:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t1) * 1e3 / POD_BLOCKS)
     one_ms = statistics.median(walls)
+    del ref, blocks
+    # the 2-D step on the 2 x 4 mesh in this process, the same blocks
+    bcfg = bm.BandMonitorConfig(num_channels=BM_K, block=BM_BLOCK)
+    step2d = w2.make_sharded_band_monitor_2d(bcfg, w2.mesh_2d(2, 4,
+                                                              device=dev))
+
+    def run_2d():
+        st = bm.init_state(bcfg, dev)
+        for b in range(POD_BM_BLOCKS):
+            _, st = step2d(st, bpairs[b * BM_BLOCK:(b + 1) * BM_BLOCK])
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_2d()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3 / POD_BM_BLOCKS)
+    one_2d_ms = statistics.median(walls)
+    del bpairs
     k12 = [x["k12"] for x in reps]
     print(f"K12 across 2 processes on {card}, a call at the fused raw tails "
           f"({k12[0]['pairs']} pairs of {k12[0]['bytes_each']} B, barrier "
@@ -4512,11 +4846,39 @@ def multiprocess_phase(dev, card: str) -> list:
           f"{POD_PROCS * POD_LOCAL} shards {one_ms}")
     launches = [(x["fused_launches"], x["wideband_launches"],
                  x["qpsk_launches"]) for x in reps]
+    psd = [x["psd"] for x in reps]
+    print(f"frequency-sharded PSD at {BIG[0][0]} x {BIG[0][1]} across "
+          f"{POD_PROCS} processes on {card}: bit-equal to one process x "
+          f"{POD_PROCS * POD_LOCAL} shards; cross-process K12 launches a "
+          f"rank {[x['cross_launches'] for x in psd]} (the dfft's "
+          f"all-to-alls {[x['all_to_all_cross'] for x in psd]}), launches "
+          f"{[x['launches'] for x in psd]}, wall ms {[x['ms'] for x in psd]}")
+    for rs, (procs, local) in ((reps, (POD_PROCS, POD_LOCAL)),
+                               (reps4, (POD4_PROCS, POD4_LOCAL))):
+        b2 = [x["band2d"] for x in rs]
+        print(f"2-D band monitor K={BM_K}, {POD_BM_BLOCKS} chained blocks of "
+              f"{BM_BLOCK} on a 2 x 4 mesh_2d, {procs} processes x {local} "
+              f"shards on {card}: every rank bit-equal to the 2 x 4 mesh in "
+              f"one process; wall ms a block {[x['ms_a_block'] for x in b2]} "
+              f"(one process x 8 shards {one_2d_ms}); launches a rank "
+              f"{[x['launches'] for x in b2]}, cross-process K12 "
+              f"{[x['cross_launches'] for x in b2]} (the corner turn's "
+              f"{[x['corner_turn_cross'] for x in b2]})")
+    ct = [x["corner_turn"] for x in reps4]
+    print(f"corner turn across {POD4_PROCS} processes on {card}, one call "
+          f"(2 planes of [{BM_BLOCK // (8 * BM_K)}, {BM_K}] float32 a shard; "
+          f"{ct[0]['pairs_sent']} blocks of {ct[0]['block_bytes']} B sent a "
+          f"rank): device route (K12 into the windows, barrier, copy-out) "
+          f"host us {[x['host_us'] for x in ct]}, device span ms (events on "
+          f"each rank's stream) {[x['device_ms'] for x in ct]}; gloo route "
+          f"(host copies, transfer_plain) ms {[x['gloo_ms'] for x in ct]}")
     print(f"phase 22 on {card}: workers' seconds "
-          f"{[x['seconds'] for x in reps]}, launches a rank (fused, "
-          f"wideband, QPSK): {launches}, "
-          f"{wall_s:.1f} s with the workers; fused, wideband and QPSK "
-          f"bit-equal to one process; config 8 OK")
+          f"{[x['seconds'] for x in reps]} ({POD_PROCS} x {POD_LOCAL}), "
+          f"{[x['seconds'] for x in reps4]} ({POD4_PROCS} x {POD4_LOCAL}); "
+          f"launches a rank (fused, wideband, QPSK): {launches}; "
+          f"{wall_s:.1f} s and {wall4_s:.1f} s with the workers; fused, "
+          f"wideband, QPSK, PSD and 2-D band monitor bit-equal to one "
+          f"process; config 8 OK")
     pairs, nbytes = k12[0]["pairs"], k12[0]["bytes_each"]
     return [kernel_row(
         "ring_halo_exchange_across_processes", "halo_ring.cu",
@@ -4524,7 +4886,13 @@ def multiprocess_phase(dev, card: str) -> list:
         sum(x["fused_launches"]["halo_ring"] for x in reps), 0.0,
         statistics.median(x["device_ms"] for x in k12),
         statistics.median(x["plain_ms"] for x in k12),
-        2 * pairs * nbytes, 0)]
+        2 * pairs * nbytes, 0), kernel_row(
+        "all_to_all_across_processes", "halo_ring.cu",
+        "comms_tpu/kernels/halo_rdma.py:84",
+        sum(x["band2d"]["corner_turn_cross"] for x in reps + reps4), 0.0,
+        statistics.median(x["device_ms"] for x in ct),
+        statistics.median(x["gloo_ms"] for x in ct),
+        ct[0]["bytes_in_out"], 0)]
 
 
 def free_port() -> int:
@@ -4596,7 +4964,7 @@ def main() -> None:
     print(f"phase 21 (the file edges): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows += multiprocess_phase(dev, card)
-    print(f"phase 22 (two processes): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 22 (2 and 4 processes): {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4605,6 +4973,6 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pod-worker"]:
-        pod_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+        pod_worker(*map(int, sys.argv[2:6]), Path(sys.argv[6]))
     else:
         main()

@@ -37,7 +37,8 @@ strided tail contiguous first).  ``launches`` counts the kernel launches;
 the launch floor on the card.
 
 **Across processes** (:func:`exchange_across`, :func:`transfer`; the
-sharding layer's rings over ``parallel.multihost``'s meshes), the ranks
+sharding layer's rings, tails and all-to-alls over meshes that span
+processes, ``parallel.multihost``), the ranks
 are separate processes with their own CUDA contexts, as the TPU kernel's
 ranks are separate programs.  The TPU kernel's remote copy becomes the
 same kernel writing into a window of the neighbour's memory mapped
@@ -373,11 +374,12 @@ def exchange_across(rings, owners, halo: int, ctxs=None, like=None):
 
 def transfer(pairs, like):
     """The byte copies of ``pairs`` between processes: each pair is (src
-    rank, src, dst rank), ``src`` the ``[halo, ...]`` tensor where this
-    process is the source (else None), every pair of the size of
-    ``like``.  Every process of the group passes the same pairs in the
-    same order.  Returns, per pair, the received tensor where this process
-    is the destination, else None.
+    rank, src, dst rank), ``src`` a contiguous tensor of ``like``'s dtype
+    and shape (a halo's tail, a ring's last tail, an all-to-all's block)
+    where this process is the source, else None.  Every process of the
+    group passes the same pairs in the same order, also one that sends and
+    receives none of them.  Returns, per pair, the received tensor where
+    this process is the destination, else None.
 
     On CUDA every pair this process sends, within it or into a window of
     its destination, goes in one launch of the kernel; then a host
@@ -480,16 +482,40 @@ def _open_event(lib, handle: bytes):
     return e.value
 
 
+def _room_for(links, stride: int, rank: int) -> None:
+    """Raise, in every process of the group alike, where a destination
+    has no room on its card for the two windows a link of a new plan
+    (collective; checked before any window is allocated)."""
+    need = sum(2 * count * stride for (_, d), count in links.items()
+               if d == rank)
+    free = torch.cuda.mem_get_info()[0]
+    if need > free:
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (need, free))
+    short = [(r, n, f) for r, (n, f) in enumerate(every) if n > f]
+    if short:
+        raise ValueError(
+            "the halo windows of this call do not fit on the card: " +
+            "; ".join(f"process {r} needs {n} bytes for two windows a link, "
+                      f"{f} are free" for r, n, f in short) +
+            " (every window plan stays until release_windows)")
+
+
 def _setup(lib, links, stride: int, rank: int):
     """A new plan (collective: every process of the group calls it for
     the same call): each destination allocates its two windows and
     ``freed`` events per link, each source its ``written`` events; the
     64-byte handles go round once through ``all_gather_object``; each
-    process opens its peers' windows and events that it uses."""
+    process opens its peers' windows and events that it uses.  Raises
+    before allocating where a destination's card has no room for its
+    windows (:func:`_room_for`)."""
     global _plans_group, _at_exit
     if _plans_group is not dist.group.WORLD:
         release_windows()
         _plans_group = dist.group.WORLD
+    _room_for(links, stride, rank)
     if not _at_exit:
         atexit.register(release_windows)
         _at_exit = True

@@ -70,9 +70,10 @@ def make_dfft(fft_size: int, mesh: sh.Mesh, axis: str = "time",
     per-shard chunks ``[..., r*C]`` in, the list of per-shard spectra out.
     ``dfft.R`` / ``dfft.C`` / ``dfft.r`` expose the factorization.  The
     phase factors are made in the input's complex dtype, once per dtype
-    and shard.  Across processes the all-to-alls go through the process
-    group (``sharding.all_to_all``) and ``dfft(x)`` returns this
-    process's shards of the spectrum (``sharding.Sharded``)."""
+    and shard.  Across processes the all-to-alls' crossing blocks go
+    through the ring kernel into the other processes' windows on CUDA
+    (gloo on the CPU; ``sharding.all_to_all``) and ``dfft(x)`` returns
+    this process's shards of the spectrum (``sharding.Sharded``)."""
     n_dev = mesh.axis_size(axis)
     N = int(fft_size)
     if local_radix is not None:

@@ -5,19 +5,20 @@ Counterpart of :mod:`comms_tpu.parallel.multihost`, on
 process group (env-driven, as ``torchrun`` sets ``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``; or with an explicit
 coordinator for manual bring-up), :func:`pod_mesh` builds the time mesh
-over every shard of every process, and :func:`host_feed` turns each
-process's locally read block into one global sharded value, with no
-bytes moved between processes (each process's chunk must be its time
-slice).
+over every shard of every process (:func:`process_mesh` a mesh of any
+shape, as ``wideband2d.mesh_2d`` lays its grid), and :func:`host_feed`
+turns each process's locally read block into one global sharded value,
+with no bytes moved between processes (each process's chunk must be its
+time slice).
 
 Each process is one rank with its own CUDA context.  Its shards lie on
 ``cuda:(rank % device_count)``: on a machine with one card every process
 shares it (the kernels of the contexts then run by time-slicing, so two
 processes on one card record the overhead of the multi-process route,
 not a speed-up); with one card a process they spread over the cards.
-The halo exchanges between processes go through the ring kernel into
-windows of the neighbour's memory mapped through CUDA IPC
-(:mod:`comms_tpu_torch.kernels.halo_ring`); the sums and the all-to-all
+The halo exchanges and the all-to-alls between processes go through the
+ring kernel into windows of the neighbour's memory mapped through CUDA
+IPC (:mod:`comms_tpu_torch.kernels.halo_ring`); the sums and gathers
 through gloo on host tensors (:mod:`.sharding`).  NCCL is not used: it
 refuses two ranks on one card.  The group's timeout is short (a minute,
 :data:`TIMEOUT_S`), so a dead peer fails a run instead of hanging it.
@@ -32,6 +33,7 @@ leaves the group.
 from __future__ import annotations
 
 import datetime
+import math
 from typing import Optional
 
 import torch
@@ -40,7 +42,8 @@ import torch.distributed as dist
 from comms_tpu_torch.kernels import halo_ring as _HR
 from comms_tpu_torch.parallel import sharding as sh
 
-__all__ = ["init", "pod_mesh", "host_feed", "is_coordinator"]
+__all__ = ["init", "pod_mesh", "process_mesh", "host_feed",
+           "is_coordinator"]
 
 TIMEOUT_S = 60.0
 
@@ -90,6 +93,41 @@ def is_coordinator() -> bool:
     return _world()[1] == 0
 
 
+def process_mesh(shape, axis_names, device="cuda") -> sh.Mesh:
+    """A mesh of ``shape`` (named ``axis_names``) over every process of
+    the group, in rank order: each of the W processes owns size / W
+    shards, contiguous in row-major shard order (the counterpart of a JAX
+    mesh laid over ``jax.devices()``'s global list), process r's on
+    ``cuda:(r % device_count)`` (or the CPU with ``device="cpu"``).
+    Raises where W does not divide the shards.  Before :func:`init`, the
+    one-process mesh with every shard on ``device``."""
+    world, rank = _world()
+    sizes = tuple(int(n) for n in shape)
+    size = math.prod(sizes)
+    if size < 1:
+        raise ValueError(f"a mesh needs at least one shard, got {sizes}")
+    if size % world:
+        raise ValueError(f"a mesh of {size} shards does not divide over "
+                         f"{world} processes")
+    per = size // world
+    kind = torch.device(device).type
+    if kind == "cuda":
+        count = torch.cuda.device_count()
+        if count < 1:
+            raise RuntimeError("a mesh on device='cuda' needs a CUDA device")
+        if world > 1:
+            torch.cuda.set_device(rank % count)
+            devs = [f"cuda:{s // per % count}" for s in range(size)]
+        else:
+            devs = [device] * size
+    elif kind == "cpu":
+        devs = ["cpu"] * size
+    else:
+        raise ValueError(f"a mesh lies on CUDA or CPU devices, got {device}")
+    return sh.Mesh(devs, sizes, axis_names,
+                   owners=[s // per for s in range(size)], rank=rank)
+
+
 def pod_mesh(name: str = "time", local_shards: int = 1,
              device="cuda") -> sh.Mesh:
     """1-D mesh over every shard of every process, in rank order:
@@ -97,28 +135,13 @@ def pod_mesh(name: str = "time", local_shards: int = 1,
     process's device count), process r's on ``cuda:(r % device_count)``
     (or the CPU with ``device="cpu"``).  Before :func:`init`, the
     one-process mesh of ``local_shards`` shards."""
-    world, rank = _world()
     n = int(local_shards)
     if n < 1:
         raise ValueError(f"a process needs at least one shard, got {n}")
-    kind = torch.device(device).type
-    if kind == "cuda":
-        count = torch.cuda.device_count()
-        if count < 1:
-            raise RuntimeError("pod_mesh(device='cuda') needs a CUDA device")
-        devs = [f"cuda:{r % count}" for r in range(world) for _ in range(n)]
-        if world > 1:
-            torch.cuda.set_device(rank % count)
-    elif kind == "cpu":
-        devs = ["cpu"] * (world * n)
-    else:
-        raise ValueError(f"a pod mesh lies on CUDA or CPU devices, got "
-                         f"{device}")
-    owners = [r for r in range(world) for _ in range(n)]
-    return sh.Mesh(devs, (world * n,), (name,), owners=owners, rank=rank)
+    return process_mesh((_world()[0] * n,), (name,), device)
 
 
-def host_feed(local_block, mesh: sh.Mesh, axis: str = "time") -> sh.Sharded:
+def host_feed(local_block, mesh: sh.Mesh, axis="time") -> sh.Sharded:
     """The global sharded value of each process's local blocks.
 
     Each process reads its own slice of the stream (its part of the
@@ -126,8 +149,10 @@ def host_feed(local_block, mesh: sh.Mesh, axis: str = "time") -> sh.Sharded:
     ``[n_local, ...]`` block (a tensor or a numpy array); the result is
     one :class:`~comms_tpu_torch.parallel.sharding.Sharded` value of
     global shape ``[n_local * processes, ...]`` laid out over ``axis``,
-    this process's chunks on its shards' device.  No bytes cross between
-    processes."""
+    this process's chunks on its shards' device.  ``axis`` names the one
+    axis of a 1-D mesh or a tuple of axes whose flattened ring is the
+    whole mesh in shard order (``("time", "chan")`` on ``mesh_2d``, as
+    JAX's ``P(("time", "chan"))``).  No bytes cross between processes."""
     x = torch.as_tensor(local_block)
     n_dev = len(mesh.local)
     if x.shape[0] % n_dev:
@@ -137,6 +162,10 @@ def host_feed(local_block, mesh: sh.Mesh, axis: str = "time") -> sh.Sharded:
     if mesh.axis_size(axis) != mesh.size:
         raise ValueError(f"host_feed lays a block over a 1-D mesh; "
                          f"{mesh.shape} has more axes than {axis!r}")
+    if mesh.rings(axis)[0] != list(range(mesh.size)):
+        raise ValueError(f"the flattened ring over {axis!r} is not the "
+                         f"mesh's shard order: its processes' slices would "
+                         f"not be contiguous")
     chunks = torch.tensor_split(x, n_dev, dim=0)
     shards = [c.to(mesh.devices[s]) for c, s in zip(chunks, mesh.local)]
     procs = mesh.size // n_dev

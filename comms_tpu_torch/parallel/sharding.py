@@ -41,16 +41,17 @@ between stages:
   process group and summed there in the same order, so the sum equals
   the one-process sum bit for bit;
 * :func:`corner_turn` and :func:`all_to_all`: re-slicing of the lists
-  (exact); across processes through the process group on host tensors,
-  copied explicitly (a device route is still to come).
+  (exact); across processes the blocks whose source and destination lie
+  in two processes take the halo's route (one launch of the ring kernel
+  into the destinations' windows on CUDA, gloo on the CPU), the blocks
+  within a process stay where they are.
 
 ``axis`` names one mesh axis, or a tuple of names (the flattened ring
 over them, as JAX's tuple axes).  The public steps of the sharded layer
 take global tensors or :class:`Sharded` values (``multihost.host_feed``)
 and return global tensors on a one-process mesh, :class:`Sharded` values
 (this process's shards, JAX's ``addressable_shards``) across processes
-(:func:`shard`, :func:`unshard`).  A step not yet written for a mesh
-across processes raises (:func:`one_process`).
+(:func:`shard`, :func:`unshard`).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ from comms_tpu_torch.kernels import halo_ring as _HR
 __all__ = ["Mesh", "Sharded", "time_mesh", "shard", "unshard",
            "halo_exchange", "halo_exchange_rdma", "ring_tails",
            "collect_ctx", "all_gather", "psum", "psum_estimate",
-           "corner_turn", "all_to_all", "one_process"]
+           "corner_turn", "all_to_all"]
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -296,17 +297,6 @@ def unshard(xs, mesh: Mesh, spec):
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
     return build(0, {})
-
-
-def one_process(mesh: Mesh, what: str) -> None:
-    """Raise where ``mesh`` spans processes: ``what`` has no form across
-    processes yet (ROADMAP.md lists it), and must not compute on shards
-    this process does not own."""
-    if mesh.spans_processes:
-        raise ValueError(
-            f"{what} runs on a mesh within one process; its form across "
-            "processes is still to come (ROADMAP.md, Queue 1: \"sharded "
-            "steps across processes\")")
 
 
 def _cast_like(ctx, x):
@@ -557,45 +547,64 @@ def all_to_all(xs, mesh: Mesh, axis="time", split_axis: int = 0,
                concat_axis: int = 0):
     """Tiled all-to-all: shard ``t`` of a ring receives block ``t`` of every
     shard's ``split_axis`` (cut into ring-size blocks), concatenated in
-    ring order along ``concat_axis``.  Across processes the blocks travel
-    through the process group on host tensors, copied explicitly (gloo's
-    send and receive)."""
-    slot = mesh.slot
-    out = [None] * len(mesh.local)
-    for ring in mesh.rings(axis):
-        n = len(ring)
-        for x in (xs[slot[s]] for s in ring if s in slot):
+    ring order along ``concat_axis``.  ``xs`` may be one list of shard
+    tensors or a tuple of such lists (planes of one dtype and shape),
+    exchanged in one call.  Across processes every block whose source and
+    destination lie in two processes goes in one :func:`halo_ring.transfer
+    <comms_tpu_torch.kernels.halo_ring.transfer>` for the whole call: on
+    CUDA one launch of the ring kernel into the destinations' windows
+    (strided blocks made contiguous on the card first), a barrier and the
+    copy-out, no block through the host; on the CPU gloo's send and
+    receive.  Every process calls it with the same rings and shapes."""
+    planes = isinstance(xs, tuple)
+    xss = list(xs) if planes else [xs]
+    slot, owners = mesh.slot, mesh.owners
+    rings = mesh.rings(axis)
+    n = len(rings[0])
+    x0 = xss[0][0]
+    for plane in xss:
+        for x in plane:
             if x.shape[split_axis] % n:
                 raise ValueError(f"dimension {split_axis} of length "
                                  f"{x.shape[split_axis]} does not divide "
                                  f"over {n} shards")
-        if not mesh.spans_processes:
-            blocks = [torch.tensor_split(xs[s], n, dim=split_axis)
-                      for s in ring]
-            for t, s in enumerate(ring):
-                out[s] = torch.cat([b[t] for b in blocks], dim=concat_axis)
-            continue
-        blocks = {s: [b.cpu().contiguous() for b in torch.tensor_split(
-            xs[slot[s]], n, dim=split_axis)] for s in ring if s in slot}
-        like = next(iter(blocks.values()))[0]
-        pairs = [(mesh.owners[a], blocks[a][t] if a in blocks else None,
-                  mesh.owners[b]) for t, b in enumerate(ring) for a in ring]
-        got = _HR.transfer_plain(pairs, like)
-        for t, b in enumerate(ring):
-            if b in slot:
-                dev = xs[slot[b]].device
-                out[slot[b]] = torch.cat(got[t * n:(t + 1) * n],
-                                         dim=concat_axis).to(dev)
-    return out
+            if x.dtype is not x0.dtype or x.shape != x0.shape:
+                raise ValueError("every plane must share the dtype and the "
+                                 "shape of the first")
+    blocks = [[torch.tensor_split(x, n, dim=split_axis) for x in plane]
+              for plane in xss]
+    pairs, order = [], []
+    for p in range(len(xss)):
+        for ring in rings:
+            for t, b in enumerate(ring):
+                for a in ring:
+                    if owners[a] == owners[b]:
+                        continue
+                    k = slot.get(a)
+                    pairs.append((owners[a], None if k is None else
+                                  blocks[p][k][t].contiguous(), owners[b]))
+                    order.append((p, a, b))
+    recv = (dict(zip(order, _HR.transfer(pairs, blocks[0][0][0])))
+            if pairs else {})
+    out = [[None] * len(mesh.local) for _ in xss]
+    for p in range(len(xss)):
+        for ring in rings:
+            for t, b in enumerate(ring):
+                if b in slot:
+                    out[p][slot[b]] = torch.cat(
+                        [blocks[p][slot[a]][t] if a in slot
+                         else recv[(p, a, b)] for a in ring], dim=concat_axis)
+    return tuple(out) if planes else out[0]
 
 
 def corner_turn(ys, mesh: Mesh, axis="time"):
     """Channelizer corner turn: per-shard ``[frames_local, K]`` (time-
     sharded) -> ``[frames_global, K / n]`` (channel-sharded): shard ``t``
     of a ring holds channels ``[t*K/n, (t+1)*K/n)`` of every shard's
-    frames, in ring order.  Requires K % n == 0."""
+    frames, in ring order.  Requires K % n == 0.  ``ys`` one list of shard
+    tensors or a tuple of planes, turned in one call (:func:`all_to_all`)."""
     n = mesh.axis_size(axis)
-    K = ys[0].shape[1]
+    K = (ys[0] if isinstance(ys, tuple) else ys)[0].shape[1]
     if K % n:
         raise ValueError(f"channels {K} not divisible by shards {n}")
     return all_to_all(ys, mesh, axis, split_axis=1, concat_axis=0)

@@ -28,6 +28,17 @@ every column, the audio halo every column.  The demod runs on time-major
 [frames, channels] planes, so every tail the rings read is contiguous.
 Outputs equal the single-device band monitor (the halos reproduce every
 window).
+
+The mesh may span processes (``parallel.multihost``): after
+``multihost.init`` :func:`mesh_2d` lays the grid over the group in rank
+order, as the JAX package's grid over ``jax.devices()``, and the step
+takes ``multihost.host_feed(block, mesh, ("time", "chan"))``.  Each
+process then computes only its own shards; the halos, the stream
+context and the corner turn's blocks that cross processes go through
+the ring kernel into the other process's windows (gloo on the CPU), the
+power map's sum and the state's last time row through gloo on host
+copies, exact, so every process's shards equal the one-process mesh's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from comms_tpu_torch.models.fm_band_monitor import BandMonitorConfig
 from comms_tpu_torch.ops import channelizer as chan
 from comms_tpu_torch.ops import demodulation as demod
 from comms_tpu_torch.ops import fir
+from comms_tpu_torch.parallel import multihost
 from comms_tpu_torch.parallel import sharding as sh
 
 __all__ = ["mesh_2d", "make_sharded_band_monitor_2d"]
@@ -47,9 +59,12 @@ __all__ = ["mesh_2d", "make_sharded_band_monitor_2d"]
 
 def mesh_2d(nt: int, nc: int, t_axis: str = "time", c_axis: str = "chan",
             device="cuda") -> sh.Mesh:
-    """An ``(nt, nc)`` mesh named ``(t_axis, c_axis)``, every shard on
-    ``device`` (shards may share it)."""
-    return sh.Mesh([device] * (nt * nc), (nt, nc), (t_axis, c_axis))
+    """An ``(nt, nc)`` mesh named ``(t_axis, c_axis)``.  In one process
+    every shard lies on ``device`` (shards may share it); after
+    ``multihost.init`` with W processes each owns nt * nc / W shards,
+    contiguous in row-major order, on ``cuda:(rank % device_count)`` (or
+    the CPU), and W must divide nt * nc (``multihost.process_mesh``)."""
+    return multihost.process_mesh((nt, nc), (t_axis, c_axis), device)
 
 
 def _audio_tile_rows(frames_row: int, kl: int, cfg) -> int:
@@ -68,17 +83,20 @@ def make_sharded_band_monitor_2d(cfg: BandMonitorConfig, mesh: sh.Mesh,
                                  t_axis: str = "time", c_axis: str = "chan",
                                  fast_demod: bool = True):
     """``(state, iq_pairs[N, 2]) -> ((audio[K, M], power[K]), state)`` over
-    the 2-D mesh, global tensors in and out.  ``state`` is the
-    single-device ``fm_band_monitor.init_state`` tuple (channelizer tail
-    [T-1, 2], per-channel FM prev [K, 2], per-channel audio tails [K,
-    MD-1]).  On CUDA shards K8 and K2 run where they apply (module
+    the 2-D mesh, global tensors in and out on a mesh in one process.
+    ``state`` is the single-device ``fm_band_monitor.init_state`` tuple
+    (channelizer tail [T-1, 2], per-channel FM prev [K, 2], per-channel
+    audio tails [K, MD-1]).  On a mesh across processes ``iq_pairs`` is
+    ``multihost.host_feed``'s value over ``(t_axis, c_axis)`` (or the
+    whole block on every process), audio and power come back as this
+    process's shards (``sharding.Sharded``, laid out as JAX's out_specs:
+    audio over (chan, time), power over chan) and the state whole on every
+    process.  On CUDA shards K8 and K2 run where they apply (module
     docstring).
 
     Constraints (validated): ``N % (nt*nc*K) == 0``, ``K % nc == 0``,
     per-row frames ``% audio_dec == 0`` and ``>= MD - 1``, and the
-    per-shard slice must cover the T-1 channelizer halo.  On a mesh in
-    one process (``sharding.one_process``)."""
-    sh.one_process(mesh, "wideband2d.make_sharded_band_monitor_2d")
+    per-shard slice must cover the T-1 channelizer halo."""
     nt, nc = mesh.shape[t_axis], mesh.shape[c_axis]
     K = cfg.num_channels
     T = K * cfg.taps_per_branch
@@ -104,12 +122,12 @@ def make_sharded_band_monitor_2d(cfg: BandMonitorConfig, mesh: sh.Mesh,
     kl = K // nc
     at2 = demod.fast_atan2 if fast_demod else torch.atan2
     ftot = float(N // K)
-    cuda = mesh.devices[0].type == "cuda"
+    cuda = mesh.devices[mesh.local[0]].type == "cuda"
     k8 = (cuda and 128 % K == 0 and n_local % _CK.step_samples() == 0
           and T - 1 <= _CK.CTX_SAMPLES)
     tile = _audio_tile_rows(frames_row, kl, cfg) if cuda else 0
-    coord = [mesh.coords(s) for s in range(mesh.size)]
-    last_t = [s for s in range(mesh.size) if coord[s][t_axis] == nt - 1]
+    last_t = [s for s in range(mesh.size)
+              if mesh.coords(s)[t_axis] == nt - 1]
     W = cfg.audio_dec * 128
 
     def channelize(re, im, cre, cim):
@@ -142,21 +160,21 @@ def make_sharded_band_monitor_2d(cfg: BandMonitorConfig, mesh: sh.Mesh,
         ims = [p[:, 1].contiguous() for p in pairs]
         prev_s = sh.shard(prev_pairs, mesh, (c_axis, None))    # [Kl, 2]
         actx_s = sh.shard(actxs, mesh, (c_axis, None))         # [Kl, MD-1]
+        local = range(len(mesh.local))
 
         # --- stage 1: channelize each shard's raw slice; overlap-save
         # halo from the flattened ring's left neighbour.
         cre, cim = sh.halo_exchange((res, ims), (ctx_pairs[:, 0],
                                                  ctx_pairs[:, 1]),
                                     T - 1, mesh, both)
-        ys = [channelize(res[s], ims[s], cre[s], cim[s])
-              for s in range(mesh.size)]
-        new_ctx_re = sh.collect_ctx(res, T - 1, mesh, both)[0]
-        new_ctx_im = sh.collect_ctx(ims, T - 1, mesh, both)[0]
+        ys = [channelize(res[k], ims[k], cre[k], cim[k]) for k in local]
+        new_ctx_re, new_ctx_im = (
+            c[0] for c in sh.collect_ctx((res, ims), T - 1, mesh, both))
 
         # --- corner turn within the time row: [fl, K] -> [frames_row,
-        # Kl] (time-major).
-        yr = sh.corner_turn([y[0] for y in ys], mesh, c_axis)
-        yi = sh.corner_turn([y[1] for y in ys], mesh, c_axis)
+        # Kl] (time-major), both planes in one call.
+        yr, yi = sh.corner_turn(([y[0] for y in ys], [y[1] for y in ys]),
+                                mesh, c_axis)
 
         # --- stage 2: per-channel FM demod on time-major planes; the
         # lag-1 frame crosses time rows of the same column, row 0 reads
@@ -165,12 +183,12 @@ def make_sharded_band_monitor_2d(cfg: BandMonitorConfig, mesh: sh.Mesh,
             (yr, yi), ([p[:, 0][None, :] for p in prev_s],
                        [p[:, 1][None, :] for p in prev_s]), 1, mesh, t_axis)
         d_tm = []
-        for s in range(mesh.size):
-            a, b = yr[s][1:], yr[s][:-1]
-            c, d_ = yi[s][1:], yi[s][:-1]
+        for k in local:
+            a, b = yr[k][1:], yr[k][:-1]
+            c, d_ = yi[k][1:], yi[k][:-1]
             d_int = at2(c * b - a * d_, a * b + c * d_)
-            p_r, p_i = prow_r[s][0], prow_i[s][0]
-            r0, i0 = yr[s][0], yi[s][0]
+            p_r, p_i = prow_r[k][0], prow_i[k][0]
+            r0, i0 = yr[k][0], yi[k][0]
             d0 = at2(i0 * p_r - r0 * p_i, r0 * p_r + i0 * p_i)
             d_tm.append(torch.cat([d0[None, :], d_int]))   # [frames, Kl]
 
@@ -178,21 +196,23 @@ def make_sharded_band_monitor_2d(cfg: BandMonitorConfig, mesh: sh.Mesh,
         # row 0 reads the carried audio tails.
         dctx = sh.halo_exchange(d_tm, [a.T for a in actx_s], Tm1, mesh,
                                 t_axis)                    # [MD-1, Kl]
-        audio = [audio_fir(d_tm[s].T.contiguous(), dctx[s].T.contiguous())
-                 for s in range(mesh.size)]                # [Kl, M/nt]
+        audio = [audio_fir(d_tm[k].T.contiguous(), dctx[k].T.contiguous())
+                 for k in local]                           # [Kl, M/nt]
 
         # --- the per-channel power map: each column's time rows summed in
         # row order.
-        power = sh.psum([torch.sum(yr[s] * yr[s] + yi[s] * yi[s], dim=0)
-                         for s in range(mesh.size)], mesh, t_axis)
+        power = sh.psum([torch.sum(yr[k] * yr[k] + yi[k] * yi[k], dim=0)
+                         for k in local], mesh, t_axis)
 
-        # --- the next state: the last time row's values, per column.
-        new_prev = torch.cat([torch.stack([yr[s][-1], yi[s][-1]], dim=-1)
-                              for s in last_t])
-        new_actx = torch.cat([d_tm[s][d_tm[s].shape[0] - Tm1:].T
-                              for s in last_t])
+        # --- the next state: the last time row's prev frame and audio
+        # tails ([Kl, 2 + MD-1] a shard), gathered whole on every process.
+        rows = sh.all_gather(
+            [torch.cat([torch.stack([yr[k][-1], yi[k][-1]], dim=-1),
+                        d_tm[k][d_tm[k].shape[0] - Tm1:].T], dim=1)
+             for k in local], mesh)
+        last = torch.cat([rows[s] for s in last_t])
         new_state = (torch.stack([new_ctx_re, new_ctx_im], dim=-1),
-                     new_prev, new_actx)
+                     last[:, :2].contiguous(), last[:, 2:].contiguous())
         return ((sh.unshard(audio, mesh, (c_axis, t_axis)),
                  sh.unshard([p / ftot for p in power], mesh, (c_axis,))),
                 new_state)

@@ -1,11 +1,13 @@
-"""Complex state leaves as float re/im pairs, for checkpoint files.
+"""Complex values as float re/im pairs: the boundary codecs.
 
-Counterpart of :mod:`comms_tpu.runtime.boundary` as far as checkpoints
-need it.  The JAX package speaks float32 pairs at every jit boundary
-because its TPU runtime cannot move complex arrays; PyTorch has no such
-limit, so the port keeps only the host pair helpers and the state
-codecs, and its checkpoint files hold complex leaves as ``[..., 2]``
-pairs, the JAX package's format.
+Counterpart of :mod:`comms_tpu.runtime.boundary`.  The JAX package
+speaks float32 pairs at every jit boundary because its TPU runtime
+cannot move complex arrays; PyTorch has no such limit, so the port uses
+the codecs where a format asks for pairs: the device-side
+:func:`pairs_to_complex` / :func:`complex_to_pairs` (tensors in and
+out, on any device), the host pair helpers and the state codecs; its
+checkpoint files hold complex leaves as ``[..., 2]`` pairs, the JAX
+package's format.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 from comms_tpu_torch.runtime._tree import tree_map
 
 __all__ = [
+    "pairs_to_complex",
+    "complex_to_pairs",
     "host_complex_to_pairs",
     "host_pairs_to_complex",
     "encode_state",
@@ -24,6 +28,20 @@ __all__ = [
     "leaf_to_pairs",
     "leaf_from_pairs",
 ]
+
+
+def pairs_to_complex(p):
+    """``[..., 2]`` float -> ``[...]`` complex of the matching width
+    (float32 -> complex64, float64 -> complex128), on ``p``'s device."""
+    p = torch.as_tensor(p)
+    return torch.complex(p[..., 0], p[..., 1])
+
+
+def complex_to_pairs(z):
+    """``[...]`` complex -> ``[..., 2]`` float re/im pairs, on ``z``'s
+    device."""
+    z = torch.as_tensor(z)
+    return torch.stack([z.real, z.imag], dim=-1)
 
 
 def host_complex_to_pairs(x: np.ndarray) -> np.ndarray:

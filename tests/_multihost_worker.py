@@ -171,8 +171,12 @@ def case_spectra(mesh, rank, out, dev):
     g = torch.Generator().manual_seed(7)
     pairs = torch.randn(2 * mesh.size, F, 2, generator=g).to(dev)
     x = torch.complex(pairs[..., 0], pairs[..., 1])
-    _equal_shards(tdfft.make_dfft(F, mesh)(x), tdfft.make_dfft(F, one)(x),
-                  "dfft")
+    HR.cross_launches = 0
+    got = tdfft.make_dfft(F, mesh)(x)
+    # the dfft's two all-to-alls cross on the card's route (K12 into the
+    # other process's windows), on gloo from CPU shards
+    assert (HR.cross_launches > 0) == (dev.type == "cuda"), HR.cross_launches
+    _equal_shards(got, tdfft.make_dfft(F, one)(x), "dfft")
     _equal_shards(twb.make_sharded_psd(F, mesh)(pairs),
                   twb.make_sharded_psd(F, one)(pairs), "psd")
     _equal_shards(twb.make_sharded_psd_planar(F, mesh)(x.real, x.imag),
@@ -238,9 +242,63 @@ def case_runtime(mesh, rank, out, dev):
     return n
 
 
+def case_band2d(mesh, rank, out, dev):
+    """The 2-D band monitor on ``mesh_2d(2, size / 2)`` laid over the
+    processes, fed through ``host_feed`` over ("time", "chan"), two
+    blocks chained, against the same mesh in this process bit for bit:
+    audio and power shards, and the state whole on every process.  On a
+    card K8 and K2 run once a local shard a block, and K12 crosses."""
+    from comms_tpu_torch.kernels import channelizer as CK
+    from comms_tpu_torch.kernels import decim_fir as DF
+    from comms_tpu_torch.models import fm_band_monitor as tbm
+    from comms_tpu_torch.parallel import wideband2d as tw2
+
+    pairs = torch.from_numpy(np.load(out / "band2d.npy")).to(dev)  # [B,N,2]
+    blocks, n = pairs.shape[:2]
+    procs = mesh.size // len(mesh.local)
+    nt, nc = 2, mesh.size // 2
+    m2 = tw2.mesh_2d(nt, nc, device=dev.type)
+    assert m2.owners == mesh.owners and m2.local == mesh.local
+    assert m2.devices[m2.local[0]] == dev
+    one = tsh.Mesh([dev] * m2.size, (nt, nc), ("time", "chan"))
+    cfg = tbm.BandMonitorConfig(num_channels=16, taps_per_branch=8,
+                                block=n, audio_dec=4)
+    pod = tw2.make_sharded_band_monitor_2d(cfg, m2)
+    ref = tw2.make_sharded_band_monitor_2d(cfg, one)
+    st_p = st_1 = tbm.init_state(cfg, dev)
+    per = n // procs
+    res, counts = {}, [0, 0, 0, 0]
+    for b in range(blocks):
+        feed = multihost.host_feed(pairs[b, rank * per:(rank + 1) * per],
+                                   m2, ("time", "chan"))
+        before = (CK.launches, DF.launches, HR.launches, HR.cross_launches)
+        (a_p, p_p), st_p = pod(st_p, feed)
+        counts = [c + now - was for c, now, was in zip(
+            counts, (CK.launches, DF.launches, HR.launches,
+                     HR.cross_launches), before)]
+        (a_1, p_1), st_1 = ref(st_1, pairs[b])
+        for name, got, want in (("audio", a_p, a_1), ("power", p_p, p_1)):
+            for k, sh_ in enumerate(got.addressable_shards):
+                assert torch.equal(sh_.data, want[sh_.index]), (name, b, k)
+                res[f"{name}{b}_{k}"] = sh_.data.cpu().numpy()
+                res[f"{name}{b}_{k}_at"] = np.array(
+                    [(i.start, i.stop) for i in sh_.index])
+    for k, (x, y) in enumerate(zip(st_p, st_1)):
+        assert torch.equal(x, y), k
+        res[f"state{k}"] = x.cpu().numpy()
+    if dev.type == "cuda":
+        local = len(m2.local)
+        assert counts[:2] == [blocks * local, blocks * local], counts
+        assert counts[2] > 0 and counts[3] > 0, counts
+    else:
+        assert counts == [0, 0, 0, 0], counts
+    np.savez(out / f"band2d_{rank}.npz", **res)
+    return counts[3]
+
+
 CASES = {"psum": case_psum, "wideband": case_wideband, "qpsk": case_qpsk,
          "fused": case_fused, "k12": case_k12, "spectra": case_spectra,
-         "runtime": case_runtime}
+         "runtime": case_runtime, "band2d": case_band2d}
 
 
 def main(argv):

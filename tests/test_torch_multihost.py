@@ -21,12 +21,18 @@ them to the JAX package's results, computed while the workers run:
   tests/test_torch_fused_wideband.py) of the JAX sharded chain (its
   kernel in interpret mode) on the first block.
 
+* the 2-D band monitor on ``mesh_2d(2, 2)`` laid over (2, 2) and (4, 1)
+  processes, two blocks chained: within ``TOL_2D`` (1e-5,
+  tests/test_torch_wideband2d.py) of the JAX 2-D band monitor on the CPU
+  mesh, audio and state absolute, power relative; in the (4, 1) layout
+  the corner turn crosses processes.
+
 Also: the distributed FFT, the PSD makers, Pipelines and a Graph
 across processes, bit-equal to one process's mesh; dry-run config 8 in
 one process, ``init``'s idempotence and ``shutdown``, ``host_feed``'s
-ValueError, the layout of a value across processes, and the 2-D band
-monitor, which has no form across processes yet and raises on such a
-mesh.  Every worker has a timeout and is killed at it.
+ValueErrors and its layout over a tuple axis, the layout of a value
+across processes and of ``mesh_2d`` over a process group.  Every worker
+has a timeout and is killed at it.
 """
 
 import os
@@ -41,14 +47,15 @@ import jax.numpy as jnp
 import torch
 import torch.distributed as dist
 
+from comms_tpu.models import fm_band_monitor as jbm
 from comms_tpu.models import qpsk_rx as jrx
 from comms_tpu.models import qpsk_tx as jtx
 from comms_tpu.models.fm_receiver import FM_LPF_TAPS
 from comms_tpu.parallel import fused_wideband as jfw
 from comms_tpu.parallel import sharding as jsh
 from comms_tpu.parallel import wideband as jwb
+from comms_tpu.parallel import wideband2d as jw2
 from comms_tpu_torch.models import fm_receiver as tfm
-from comms_tpu_torch.models import fm_band_monitor as tbm
 from comms_tpu_torch.parallel import dryrun, multihost
 from comms_tpu_torch.parallel import sharding as tsh
 from comms_tpu_torch.parallel import wideband2d as tw2
@@ -57,6 +64,7 @@ WORKER = Path(__file__).resolve().parent / "_multihost_worker.py"
 TIMEOUT_S = 120
 TOL_CHAIN = 1e-4
 TOL_FM = 1e-3
+TOL_2D = 1e-5
 
 
 def _free_port():
@@ -217,6 +225,29 @@ def test_init_is_idempotent_and_shutdown_leaves():
     assert not dist.is_initialized()
 
 
+def test_window_plan_that_does_not_fit_raises_before_allocating(
+        monkeypatch):
+    # K12's cross-process windows are cudaMalloc'd per plan; a plan larger
+    # than the card's free memory raises in every process, before any
+    # window exists (the check is collective: a one-process group here)
+    from comms_tpu_torch.kernels import halo_ring as HR
+
+    free = [10_000]
+    monkeypatch.setattr(HR.torch.cuda, "mem_get_info",
+                        lambda *a: (free[0], 1 << 30))
+    monkeypatch.setattr(HR.torch.cuda, "empty_cache", lambda: None)
+    addr = f"127.0.0.1:{_free_port()}"
+    try:
+        multihost.init(addr, num_processes=1, process_id=0)
+        HR._room_for({(1, 0): 4, (0, 1): 100}, 1024, 0)   # 8 KiB here
+        free[0] = 8191
+        with pytest.raises(ValueError, match="do not fit on the card"):
+            HR._room_for({(1, 0): 4, (0, 1): 100}, 1024, 0)
+    finally:
+        multihost.shutdown()
+    assert not HR._owned
+
+
 def test_host_feed_rejects_uneven_blocks():
     mesh = multihost.pod_mesh(local_shards=3, device="cpu")
     with pytest.raises(ValueError, match="divide evenly over 3 local"):
@@ -270,12 +301,93 @@ def test_runtime_steps_across_processes(tmp_path, procs, local):
     _finish(_spawn("runtime", procs, local, tmp_path))
 
 
-def test_2d_band_monitor_raises_across_processes():
-    cfg = tbm.BandMonitorConfig(num_channels=4, taps_per_branch=4,
-                                block=4 * 256, audio_dec=4)
-    mesh = _pod(shape=(2, 2), names=("time", "chan"))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tw2.make_sharded_band_monitor_2d(cfg, mesh)
+def _band2d_pairs(n, seed):
+    rng = np.random.default_rng(seed)
+    ph = np.cumsum(0.3 + 0.2 * rng.normal(size=n))
+    z = (np.exp(1j * ph) + 0.1 * rng.normal(size=n)).astype(np.complex64)
+    return np.stack([z.real, z.imag], -1).astype(np.float32)
+
+
+def _placed(parts, key, shape):
+    """The global array of the workers' shards of ``key`` (each saved with
+    its place), every element covered once."""
+    full = np.full(shape, np.nan, np.float32)
+    for p in parts:
+        k = 0
+        while f"{key}_{k}" in p:
+            at = tuple(slice(a, b) for a, b in p[f"{key}_{k}_at"])
+            full[at] = p[f"{key}_{k}"]
+            k += 1
+    assert not np.isnan(full).any(), key
+    return full
+
+
+@pytest.mark.parametrize("procs,local", [(2, 2), (4, 1)])
+def test_band_monitor_2d_across_processes(tmp_path, procs, local):
+    n = 16384
+    blocks = np.stack([_band2d_pairs(n, 11), _band2d_pairs(n, 12)])
+    np.save(tmp_path / "band2d.npy", blocks)
+    workers = _spawn("band2d", procs, local, tmp_path)
+    jcfg = jbm.BandMonitorConfig(num_channels=16, taps_per_branch=8,
+                                 block=n, audio_dec=4)
+    jstep = jw2.make_sharded_band_monitor_2d(jcfg, jw2.mesh_2d(2, 2))
+    jst = jbm.init_state(jcfg)
+    want = []
+    for b in range(2):
+        (ja, jp), jst = jstep(jst, jnp.asarray(blocks[b]))
+        want.append((np.asarray(ja), np.asarray(jp)))
+    _finish(workers)
+    parts = [np.load(tmp_path / f"band2d_{r}.npz") for r in range(procs)]
+    for b, (ja, jp) in enumerate(want):
+        np.testing.assert_allclose(_placed(parts, f"audio{b}", ja.shape), ja,
+                                   atol=TOL_2D)
+        np.testing.assert_allclose(_placed(parts, f"power{b}", jp.shape), jp,
+                                   rtol=TOL_2D)
+    for p in parts:
+        for k, s in enumerate(jst):
+            np.testing.assert_allclose(p[f"state{k}"], np.asarray(s),
+                                       atol=TOL_2D)
+
+
+@pytest.mark.parametrize("procs,rank", [(2, 0), (2, 1), (4, 3)])
+def test_mesh_2d_lays_its_grid_over_the_processes(monkeypatch, procs, rank):
+    # the group as multihost.init leaves it: mesh_2d reads only its size
+    # and this process's rank
+    monkeypatch.setattr(multihost, "_world", lambda: (procs, rank))
+    mesh = tw2.mesh_2d(2, 4, device="cpu")
+    per = 8 // procs
+    assert mesh.owners == [s // per for s in range(8)]
+    assert mesh.local == list(range(rank * per, (rank + 1) * per))
+    assert mesh.spans_processes and mesh.rank == rank
+    assert [mesh.coords(s) for s in mesh.local] == [
+        {"time": s // 4, "chan": s % 4} for s in mesh.local]
+    with pytest.raises(ValueError, match="does not divide over"):
+        tw2.mesh_2d(1, 3, device="cpu")
+
+
+def test_mesh_2d_before_init_is_one_process():
+    assert not dist.is_initialized()
+    mesh = tw2.mesh_2d(2, 4, device="cpu")
+    assert mesh.owners == [0] * 8 and not mesh.spans_processes
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_host_feed_over_both_axes_lays_chunks_at_their_places(rank):
+    mesh = _pod(rank, shape=(2, 2), names=("time", "chan"))
+    full = torch.arange(16 * 2, dtype=torch.float32).reshape(16, 2)
+    g = multihost.host_feed(full[8 * rank:8 * (rank + 1)], mesh,
+                            ("time", "chan"))
+    assert g.shape == (16, 2)
+    assert [s.index[0] for s in g.addressable_shards] == [
+        slice(8 * rank, 8 * rank + 4), slice(8 * rank + 4, 8 * rank + 8)]
+    for s in g.addressable_shards:
+        assert torch.equal(s.data, full[s.index])
+    assert all(a is b for a, b in zip(
+        tsh.shard(g, mesh, (("time", "chan"), None)), g.shards))
+    with pytest.raises(ValueError, match="1-D mesh"):
+        multihost.host_feed(full[:8], mesh, "time")
+    with pytest.raises(ValueError, match="shard order"):
+        multihost.host_feed(full[:8], mesh, ("chan", "time"))
 
 
 def test_in_process_multi_card_mesh_names_the_multihost_route():

@@ -6,10 +6,15 @@ CUDA IPC, equals the exchange of the same shards in one process bit for
 bit, three calls running (both windows and a reuse), one cross-process
 launch a call on each rank.  The psum, the sharded wideband chain, the
 time-sharded QPSK receiver (K5 per shard) and the fused FM step (K1 per
-shard, three blocks chained), the distributed FFT and the PSD makers,
-and Pipelines and a Graph over the runtime's BlockOps equal, bit for bit
-on every worker's shards, the same programs on an 8-shard mesh in one
-process.  Where the
+shard, three blocks chained), the distributed FFT (its all-to-alls
+across the processes on K12, cross-process launches counted) and the
+PSD makers, and Pipelines and a Graph over the runtime's BlockOps equal,
+bit for bit on every worker's shards, the same programs on an 8-shard
+mesh in one process.  The 2-D band monitor on a 2 x 4 ``mesh_2d`` laid
+over 2 processes x 4 shards and over 4 processes x 2 shards (there the
+corner turn crosses processes), two blocks chained, equals the same mesh
+in one process bit for bit, with K8 and K2 launched once a local shard a
+block and K12 crossing.  Where the
 machine has two cards, the ranks take one each and K12 crosses between
 them (lazy peer access); with one card that case skips.
 
@@ -33,6 +38,7 @@ import torch
 WORKER = Path(__file__).resolve().parent / "_multihost_worker.py"
 TIMEOUT_S = 240
 FUSED_BLOCK = 8 * 102_400
+BAND2D_BLOCK = 8 * 16_384
 
 
 @pytest.fixture
@@ -123,3 +129,17 @@ def test_spectra_across_two_processes_on_the_card(card, tmp_path):
 @pytest.mark.cuda
 def test_runtime_steps_across_two_processes_on_the_card(card, tmp_path):
     _run("runtime", tmp_path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("procs,local", [(2, 4), (4, 2)])
+def test_band_monitor_2d_across_processes_on_the_card(card, tmp_path, procs,
+                                                      local):
+    # 8 x 16,384 samples: each shard's slice is one K8 step and each time
+    # row's 4,096 frames one K2 tile of 8 rows
+    rng = np.random.default_rng(6)
+    ph = np.cumsum(0.3 + 0.2 * rng.normal(size=(2, BAND2D_BLOCK)), axis=1)
+    z = np.exp(1j * ph) + 0.1 * rng.normal(size=ph.shape)
+    np.save(tmp_path / "band2d.npy",
+            np.stack([z.real, z.imag], -1).astype(np.float32))
+    _run("band2d", tmp_path, procs, local)
