@@ -167,7 +167,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``mode="unroll"``; the Costas-loop kernel against its plain version at
    2,048 and 16,384 symbols and timed at 2,048 and 2^20; the AGC scan
    kernel against its plain version at 4,096 samples and timed at 4,096
-   and 262,144; the Costas receiver (``make_stream_fn``, 8,192-sample
+   and 262,144; the dependent chain's measured floor of both loops
+   (``tools/recurrence_floor.chain_floor``, its probe built in phase 2
+   beside the package: the step on register-resident data, one warp; the
+   fewest SASS instructions a step, for the issue term); the batched
+   kernels (B streams a launch, one lane a stream) against the batched
+   plain versions bit for bit at B = 1, 8, 32, 64, 512 and 16,896 (2,048
+   symbols, 4,096 samples), each timed beside its bound; the Costas
+   receiver (``make_stream_fn``, 8,192-sample
    blocks) served through ``StreamRunner`` over the JAX test's channel
    (34 blocks, a carrier step at block 17), zero bit errors after 3
    acquisition blocks, then served again over the same blocks for its
@@ -180,7 +187,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    step against the fast step (1e-5) and the ``est_lag=2`` fused step
    (zero bit errors after its two warm-up blocks) at 33,554,432 samples,
    each served with no sink beside the fused step (``est_lag=1``), with
-   K5's launches a block; kernel rows for the Costas loop and the AGC
+   K5's launches a block; the Costas receiver served for 8 and 64
+   streams (each its own channel, seeds 11 + b) through
+   ``BatchedStreamRunner``: ``mode="vmap"`` with the batched vmap rule
+   (one Costas launch a round), the same with the per-slice rule (a
+   launch a stream), and ``mode="unroll"``: zero bit errors on every
+   stream; the Costas op's calls under vmap (its [B, n] inputs as vmap
+   passes them) against the batched plain version bit for bit at the
+   carrier step's round and the last; the vmapped symbols and states
+   against unroll bit for bit, else within TOL_SPLIT, else within
+   TOL_VMAP_SYM and TOL_VMAP_STATE a block with the same decisions on
+   every stream (it prints which); the per-slice rule bit for bit with
+   the batched one; each route's Msps, host enqueue and device ms a
+   round and busy share; kernel rows for the Costas loop and the AGC
    scan;
 21. the file edges (the counts of every kernel start at 0 before each
    path and are read after it): the native block reader available (phase
@@ -408,11 +427,14 @@ def bound(nbytes: float, flops: float, tf32x3_flops: float = 0.0):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
-               nbytes, flops, library_ms=None, tf32x3_flops=0.0) -> dict:
+               nbytes, flops, library_ms=None, tf32x3_flops=0.0,
+               bound_ms_by=None) -> dict:
     """One entry of the kernel table: the bound is computed from this run's
     shapes (``nbytes``, ``flops`` on the CUDA cores, ``tf32x3_flops`` on
-    the tensor cores); every time was measured in this run."""
-    b_ms, by = bound(nbytes, flops, tf32x3_flops)
+    the tensor cores), or given as ``bound_ms_by`` (ms, "bytes" or
+    "operations") where a measured floor sets it; every time was measured
+    in this run."""
+    b_ms, by = bound_ms_by or bound(nbytes, flops, tf32x3_flops)
     tc = (f" + {tf32x3_flops / 1e9:.3f} GFLOP in 3xTF32" if tf32x3_flops
           else "")
     print(f"bound of {name}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} "
@@ -3391,10 +3413,24 @@ AGC_LONG = 262_144       # the rtl-sdr read
 VMAP_STREAMS = 3
 TOL_REC = 1e-5           # recurrence kernels against plain (O(1) values)
 TOL_SPLIT = 1e-5         # split vs fast (tests/test_qpsk_rx_stream.py:213)
-# Dependent-chain floor estimates of the recurrences (csrc/recurrence.cu):
-# ~215 cycles a Costas step, ~150 an AGC step, at 1.98 GHz.
-COSTAS_FLOOR_NS = 215 / 1.98
-AGC_FLOOR_NS = 150 / 1.98
+# The vmapped Costas receiver against unroll, a block (phase 20g): the
+# step's batched frequency-estimate sum and matched-filter GEMM round
+# otherwise than one stream's (tools/costas_vmap_rounding.py), and the
+# Costas detector's +-pi branch carries it.  Measured over 34 blocks of
+# 8 and 64 streams: symbols 5.2e-4 apart, states 1.5e-2 (the
+# interpolator's carried samples; theta and tau compared modulo their
+# periods); limits 4x that.
+TOL_VMAP_SYM = 2e-3
+TOL_VMAP_STATE = 6e-2
+# The batched recurrence kernels' stream counts: one, the served
+# receiver's 8, a warp, the served 64, 4 blocks of 128, and one warp on
+# each of the card's 528 schedulers; the served Costas receiver's stream
+# counts.
+BATCH_STREAMS = (1, 8, 32, 64, 512, 16_896)
+SERVE_STREAMS = (8, 64)
+# The recurrence probe (tools/recurrence_floor.start_probe), started in
+# phase 2 beside the package's build.
+RECURRENCE_PROBE = []
 
 
 def link_channel(n_blocks: int, block: int, seed: int):
@@ -3459,6 +3495,101 @@ def locked_symbols(n: int, seed: int, dev):
         1j * (0.05 + 1e-3 * np.arange(n)))
     s = s + 0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
     return torch.from_numpy(s.astype(np.complex64)).to(dev)
+
+
+def locked_symbols_card(B: int, n: int, seed: int, dev):
+    """[B, n] complex64 on the card: :func:`locked_symbols`' streams (0.05
+    rad plus 1e-3 rad a symbol, noise of sigma 0.02), made there from a
+    seeded generator, each stream its own bits and noise."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randint(0, 2, (2, B, n), generator=g, device=dev) * 2.0 - 1
+    ph = 0.05 + 1e-3 * torch.arange(n, device=dev, dtype=torch.float32)
+    s = torch.complex(b[0], b[1]) * torch.polar(torch.ones_like(ph), ph)
+    noise = torch.randn((2, B, n), generator=g, device=dev) * 0.02
+    return s + torch.complex(noise[0], noise[1])
+
+
+def agc_samples_card(B: int, n: int, seed: int, dev):
+    """[B, n] complex64 on the card: phase 20c's AGC input (a step from
+    0.1 to 2.0 halfway, a tone of 0.3 rad a sample, noise of sigma 0.01),
+    each stream its own tone phase and noise."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.arange(n, device=dev, dtype=torch.float32)
+    amp = torch.where(k < n // 2, 0.1, 2.0)
+    ph = 0.3 * k + 6.0 * torch.rand((B, 1), generator=g, device=dev)
+    noise = torch.randn((2, B, n), generator=g, device=dev) * 0.01
+    return (torch.polar(amp.expand(B, n), ph)
+            + torch.complex(noise[0], noise[1]))
+
+
+def recurrence_tools():
+    """``tools/recurrence_floor`` (the recurrence kernels' floor and
+    bound), imported from this checkout's ``tools``."""
+    if str(REPO / "tools") not in sys.path:
+        sys.path.insert(0, str(REPO / "tools"))
+    import recurrence_floor
+
+    return recurrence_floor
+
+
+def recurrence_floor(dev, card: str) -> dict:
+    """The recurrence kernels' measured floors
+    (``recurrence_floor.chain_floor`` on phase 2's probe), printed."""
+    rf = recurrence_tools()
+    floor = rf.chain_floor(dev, RECURRENCE_PROBE[0])
+    for line in floor["ptxas"]:
+        print(f"ptxas recurrence probe {line}")
+    for k in ("costas", "agc"):
+        f = floor[k]
+        print(f"{k} dependent chain on {card} (measured: the step on "
+              f"register-resident data, one warp): {f['cycles_a_step']:.1f} "
+              f"cycles, {f['ns_a_step']:.2f} ns a step at {f['ghz']:.3f} "
+              f"GHz; the chain-only loop's SASS a step: "
+              f"{f['sass_a_step']:.2f} in its span, "
+              f"{f['sass_fewest_a_step']:.2f} the fewest an iteration "
+              f"issues -> issue term {f['issue_ns_a_stream_step']:.5f} ns "
+              f"a stream-step; clock64 split (cycles) "
+              f"{json.dumps({p: round(v, 1) for p, v in f['split_cycles'].items()})}")
+    return floor
+
+
+def batched_rows(name: str, call, plain, make, states, n: int, floor: dict,
+                 card: str) -> list:
+    """The batched kernel ``call(xr, xi, *states(B))`` against ``plain``
+    bit for bit and timed at each of BATCH_STREAMS streams of ``n`` steps
+    (``make(B, n, seed)``: complex [B, n] on the card), beside the bound
+    (``recurrence_floor.bound_ms``).  Returns the timings."""
+    import torch
+
+    rf = recurrence_tools()
+    out = []
+    for B in BATCH_STREAMS:
+        x = make(B, n, 100 + B)
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        st = states(B)
+        got = call(xr, xi, *st)
+        want = plain(xr, xi, *st)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            fail(f"{name} batched at {B} x {n}: not bit-equal to the "
+                 f"batched plain version (max {err:.3g})")
+        ms = cuda_ms(lambda: call(xr, xi, *st))
+        b = rf.bound_ms(floor, B, n)
+        out.append({"B": B, "n": n, "ms": ms, **b})
+        print(f"{name} batched, {B} streams x {n} on {card}: bit for bit "
+              f"with the batched plain version; {ms:.4f} ms, "
+              f"{1e6 * ms / n:.1f} ns a step a stream, "
+              f"{B * n / ms / 1e3:.1f} M steps/s; bound {b['bound_ms']:.4f}"
+              f" ms ({b['bound_by']}: chain {b['chain_ms']:.4f}, bytes "
+              f"{b['bytes_ms']:.4f}, issue {b['issue_ms']:.4f}; bytes pass "
+              f"the chain from B = {b['bytes_from_B']:.0f}, issue from "
+              f"{b['issue_from_B']:.0f})")
+        del x, xr, xi, got, want
+    return out
 
 
 def qpsk_link_phases(dev, card: str) -> list:
@@ -3536,7 +3667,9 @@ def qpsk_link_phases(dev, card: str) -> list:
     print("vmap equals unroll bit for bit (symbols and states)")
     del rounds, lifted
 
-    # ---- 20b. the Costas kernel against its plain version, then times
+    # ---- 20b. the Costas kernel against its plain version, then times;
+    # the batched kernel against the batched plain version
+    floor = recurrence_floor(dev, card)
     rows = []
     errs = {}
     for n in COSTAS_CHECK:
@@ -3568,8 +3701,17 @@ def qpsk_link_phases(dev, card: str) -> list:
           f"({1e6 * costas_ms / n:.1f} ns a symbol), {long_ms:.4f} ms at "
           f"{COSTAS_LONG} ({1e6 * long_ms / COSTAS_LONG:.1f} ns a symbol); "
           f"plain {costas_plain_ms:.4f} ms at {n}; the dependent chain's "
-          f"floor (an estimate) {COSTAS_FLOOR_NS:.0f} ns a symbol")
+          f"floor (measured) {floor['costas']['ns_a_step']:.1f} ns a symbol")
     del xl, lr, li
+    costas_batched = batched_rows(
+        "costas_loop",
+        lambda xr, xi, p, f: R.costas_loop_batched(xr, xi, p, f, 0.1, 0.005),
+        lambda xr, xi, p, f: R.costas_loop_batched_plain(xr, xi, p, f, 0.1,
+                                                         0.005),
+        lambda B, n, seed: locked_symbols_card(B, n, seed, dev),
+        lambda B: (torch.linspace(-0.05, 0.05, B, device=dev),
+                   torch.full((B,), -2e-4, device=dev)),
+        COSTAS_CHECK[0], floor["costas"], card)
 
     # ---- 20c. the AGC scan kernel against its plain version, then times
     rng = np.random.default_rng(4)
@@ -3598,8 +3740,15 @@ def qpsk_link_phases(dev, card: str) -> list:
           f"{agc_long_ms:.4f} ms at {AGC_LONG} "
           f"({1e6 * agc_long_ms / AGC_LONG:.1f} ns a sample); plain "
           f"{agc_plain_ms:.4f} ms at {AGC_CHECK}; the dependent chain's "
-          f"floor (an estimate) {AGC_FLOOR_NS:.0f} ns a sample")
+          f"floor (measured) {floor['agc']['ns_a_step']:.1f} ns a sample")
     del xl
+    batched_rows(
+        "agc_scan",
+        lambda xr, xi, g: R.agc_scan_batched(xr, xi, g, 1.0, 5e-2),
+        lambda xr, xi, g: R.agc_scan_batched_plain(xr, xi, g, 1.0, 5e-2),
+        lambda B, n, seed: agc_samples_card(B, n, seed, dev),
+        lambda B: (torch.linspace(0.5, 2.0, B, device=dev),),
+        AGC_CHECK, floor["agc"], card)
 
     # ---- 20d. the Costas receiver on the JAX test's channel, served
     cfg = tstream.QpskRxStreamConfig(block=LINK_BLOCK)
@@ -3798,19 +3947,233 @@ def qpsk_link_phases(dev, card: str) -> list:
                 fail(f"est_lag=2 launches {per_block}")
     del blocks, re, im
 
-    nbytes_c = 16 * COSTAS_CHECK[0] + 16
-    nbytes_a = 16 * AGC_CHECK + 8
-    rows.append(kernel_row(
-        "costas_loop", "recurrence.cu",
-        "comms_tpu/ops/demodulation.py:143 (lax.scan; no Pallas kernel)",
-        costas_launches, max(errs.values()), costas_ms, costas_plain_ms,
-        nbytes_c, 25 * COSTAS_CHECK[0]))
-    rows.append(kernel_row(
-        "agc_scan", "recurrence.cu",
-        "comms_tpu/ops/agc.py:43 (lax.scan; no Pallas kernel)",
-        agc_launches, agc_err,
-        agc_ms, agc_plain_ms, nbytes_a, 12 * AGC_CHECK))
+    # ---- 20g. the Costas receiver served for B streams
+    costas_launches += served_streams(step, cfg, dev, card, zero_counts,
+                                      counts, floor["costas"]["ns_a_step"])
+
+    # the bound: the largest of the measured chain x n, the bytes and the
+    # issue term (recurrence_floor.bound_ms); the kernels line names a
+    # bound "bytes" or "operations", and the chain and the issue term are
+    # the step's operations, so it says "operations" where either sets it
+    rf = recurrence_tools()
+    for name, src, lc, err, ms, pms, key, n in (
+            ("costas_loop",
+             "comms_tpu/ops/demodulation.py:143 (lax.scan; no Pallas "
+             "kernel)", costas_launches, max(errs.values()), costas_ms,
+             costas_plain_ms, "costas", COSTAS_CHECK[0]),
+            ("agc_scan",
+             "comms_tpu/ops/agc.py:43 (lax.scan; no Pallas kernel)",
+             agc_launches, agc_err, agc_ms, agc_plain_ms, "agc",
+             AGC_CHECK)):
+        b = rf.bound_ms(floor[key], 1, n)
+        print(f"{name} row's bound on {card}: {b['bound_ms']:.4f} ms, set "
+              f"by the {b['bound_by']} (chain {b['chain_ms']:.4f}, bytes "
+              f"{b['bytes_ms']:.6f}, issue {b['issue_ms']:.6f} ms)")
+        rows.append(kernel_row(
+            name, "recurrence.cu", src, lc, err, ms, pms, 16 * n + 16, 0.0,
+            bound_ms_by=(b["bound_ms"], "bytes" if b["bound_by"] == "bytes"
+                         else "operations")))
+    print(f"batched Costas rows (B, ms, bound ms): "
+          f"{json.dumps([(r['B'], r['ms'], r['bound_ms']) for r in costas_batched])}")
     return rows
+
+
+def state_gaps(a, b, sps: int) -> dict:
+    """The largest gap, leaf by leaf, between two Costas receiver states
+    (``costas`` a pair: ``costas_phase``, ``costas_freq``); ``theta`` and
+    ``tau`` modulo their periods (2 pi, ``sps``), where a wrap is no
+    gap."""
+    import torch
+
+    out = {}
+    for k in a:
+        pairs = (zip(("costas_phase", "costas_freq"), a[k], b[k])
+                 if k == "costas" else ((k, a[k], b[k]),))
+        for name, x, y in pairs:
+            d = (x - y).abs()
+            period = {"theta": 2 * np.pi, "tau": float(sps)}.get(name)
+            if period is not None:
+                d = torch.minimum(d, period - d)
+            out[name] = float(d.max())
+    return out
+
+
+def served_streams(step, cfg, dev, card: str, zero_counts, counts,
+                   floor_ns: float) -> int:
+    """Phase 20g: the Costas receiver ``step`` served for each of
+    SERVE_STREAMS streams (each its own channel: seed LINK_SEED + b)
+    through ``BatchedStreamRunner``, three routes: ``mode="vmap"`` (the
+    batched vmap rule: one Costas launch a round), ``mode="vmap"`` with
+    the per-slice rule registered in its place (a launch a stream), and
+    ``mode="unroll"``.  Each route: a first pass (copying sinks) for the
+    checks and the launches, a second for the rate; the round's host
+    enqueue (idle card, median of 5) and device ms; the busy share.  The
+    vmap route's first pass records the Costas op's calls (its inputs as
+    vmap passes them, strides and all); the calls of the carrier step's
+    round and of the last are held to ``costas_loop_batched_plain`` on
+    the same inputs, bit for bit.  The vmap and the unroll routes: zero
+    bit errors on every stream; vmap's symbols and states against
+    unroll's, a block, bit for bit, else within TOL_SPLIT, else within
+    TOL_VMAP_SYM and TOL_VMAP_STATE with the same decisions on every
+    stream (it prints which); the per-slice rule bit for bit with the
+    batched rule.  ``floor_ns``: the Costas chain's measured ns a
+    symbol.  Returns the Costas launches of the vmap route's first
+    passes."""
+    import torch
+
+    from comms_tpu_torch.kernels import _build
+    from comms_tpu_torch.kernels import recurrence as R
+    from comms_tpu_torch.models import qpsk_rx as trx
+    from comms_tpu_torch.models import qpsk_rx_stream as tstream
+    from comms_tpu_torch.runtime import BatchedStreamRunner
+
+    M = cfg.syms_per_block
+    main_launches = 0
+    checked_rounds = (LINK_STEP_BLOCK, LINK_BLOCKS - 1)
+    for S in SERVE_STREAMS:
+        chans = [link_channel(LINK_BLOCKS, LINK_BLOCK, LINK_SEED + b)
+                 for b in range(S)]
+        rounds = [torch.stack([torch.from_numpy(
+            p[k * LINK_BLOCK:(k + 1) * LINK_BLOCK]) for _, p in chans])
+            .to(dev) for k in range(LINK_BLOCKS)]
+        res, recorded = {}, []
+
+        def recording(*args):
+            outs = R._costas_op(*args)
+            recorded.append((args, outs))
+            return outs
+
+        for route in ("vmap", "per_slice", "unroll"):
+            mode = "unroll" if route == "unroll" else "vmap"
+            try:
+                if route == "per_slice":
+                    _build.per_slice_vmap(R._costas_op)
+                passes = []
+                for k in range(2):
+                    if route == "vmap":
+                        R._costas_op.register_vmap(R.batched_vmap_rule(
+                            recording if k == 0 else R._costas_op))
+                    outs = [[] for _ in range(S)]
+                    zero_counts()
+                    r = BatchedStreamRunner(
+                        step, [tstream.init_state(cfg, dev)
+                               for _ in range(S)],
+                        batched_source=rounds,
+                        sinks=[o.append for o in outs], depth=SERVE_DEPTH,
+                        mode=mode, device=dev)
+                    msps = r.run().msps
+                    passes.append((msps, outs, r.stream_states(), counts()))
+                enqueue = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r.block_fn(r.state, rounds[5])
+                    enqueue.append((time.perf_counter() - t0) * 1e3)
+                dev_ms = cuda_ms(lambda: r.block_fn(r.state, rounds[5]),
+                                 reps=5)
+            finally:
+                R._costas_op.register_vmap(
+                    R.batched_vmap_rule(R._costas_op))
+            msps = passes[1][0]
+            wall_ms = 1e3 * S * LINK_BLOCK / (msps * 1e6)
+            res[route] = {
+                "msps": msps, "first_pass_msps": passes[0][0],
+                "enqueue_ms": float(np.median(enqueue)),
+                "device_ms": dev_ms, "wall_ms": wall_ms,
+                "busy": dev_ms / wall_ms,
+                "costas_launches_a_round":
+                    passes[0][3]["costas_loop"] / LINK_BLOCKS,
+                "outs": passes[0][1], "states": passes[0][2]}
+            if route == "vmap":
+                main_launches += passes[0][3]["costas_loop"]
+        v, u = res["vmap"], res["unroll"]
+        if v["costas_launches_a_round"] != 1:
+            fail(f"Costas receiver, {S} streams under vmap: "
+                 f"{v['costas_launches_a_round']} Costas launches a round")
+        # the Costas op's calls under vmap against the batched plain
+        # version on the same inputs
+        if len(recorded) != LINK_BLOCKS:
+            fail(f"{S} streams: {len(recorded)} Costas op calls recorded "
+                 f"in {LINK_BLOCKS} rounds")
+        for k in checked_rounds:
+            (xr, xi, ph, fr, order, alpha, beta), got = recorded[k]
+            want = R.costas_loop_batched_plain(xr, xi, ph, fr, alpha, beta,
+                                               order)
+            if xr.shape != (S, M) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                err = max(max_err(g, w) for g, w in zip(got, want))
+                fail(f"{S} streams, round {k}: the Costas op under vmap "
+                     f"({tuple(xr.shape)}, strides {xr.stride()}) is not "
+                     f"bit-equal to the batched plain version (max "
+                     f"{err:.3g})")
+        print(f"Costas op under vmap, {S} streams on {card}: rounds "
+              f"{list(checked_rounds)} ({tuple(recorded[0][0][0].shape)} "
+              f"planes, strides {recorded[0][0][0].stride()} and "
+              f"{recorded[0][0][1].stride()}) bit for bit with "
+              f"costas_loop_batched_plain on the same inputs")
+        del recorded[:]
+
+        def symbols(route, b):
+            a = np.concatenate(res[route]["outs"][b][LINK_SKIP:])
+            return a[:, 0] + 1j * a[:, 1]
+
+        errs = {}
+        for route in ("vmap", "unroll"):
+            errs[route] = []
+            for b in range(S):
+                e, m, _, _ = best_align(symbols(route, b), chans[b][0],
+                                        LINK_SKIP * M)
+                errs[route].append(e)
+                if e or m <= 60000:
+                    fail(f"Costas receiver, {S} streams ({route}): stream "
+                         f"{b} {e} bit errors over {m} bits")
+        for b in range(S):
+            if not all(np.array_equal(a, c) for a, c in
+                       zip(res["per_slice"]["outs"][b], v["outs"][b])):
+                fail(f"{S} streams: the per-slice rule's symbols differ"
+                     f" from the batched rule's (stream {b})")
+        sym_d = max(float(np.abs(a - c).max()) for b in range(S)
+                    for a, c in zip(v["outs"][b], u["outs"][b]))
+        gaps = {}
+        for b in range(S):
+            for key, d in state_gaps(v["states"][b], u["states"][b],
+                                     cfg.sps).items():
+                gaps[key] = max(gaps.get(key, 0.0), d)
+        st_d = max(gaps.values())
+        same_bits = all(np.array_equal(trx.decide_bits(symbols("vmap", b)),
+                                       trx.decide_bits(symbols("unroll", b)))
+                        for b in range(S))
+        if sym_d == 0 and st_d == 0:
+            case = "bit for bit"
+        elif max(sym_d, st_d) <= TOL_SPLIT:
+            case = "within TOL_SPLIT"
+        elif sym_d <= TOL_VMAP_SYM and st_d <= TOL_VMAP_STATE and same_bits:
+            case = ("within TOL_VMAP_SYM and TOL_VMAP_STATE, decisions bit "
+                    "for bit (the batched frequency-estimate sum and "
+                    "matched-filter GEMM round otherwise, and the Costas "
+                    "detector's +-pi branch carries it)")
+        else:
+            case = None
+        summary = {k: {q: w for q, w in d.items()
+                       if q not in ("outs", "states")}
+                   for k, d in res.items()}
+        print(f"Costas receiver served for {S} streams on {card} "
+              f"({LINK_BLOCKS} rounds of {S} x {LINK_BLOCK} samples, each "
+              f"stream its own channel, depth {SERVE_DEPTH}, copying "
+              f"sinks; the Costas chain floor x {M} symbols "
+              f"{floor_ns * M * 1e-6:.4f} ms a round): "
+              f"{json.dumps(summary)}; bit errors after {LINK_SKIP} blocks "
+              f"{json.dumps(errs)}; vmap against unroll over the "
+              f"{LINK_BLOCKS} blocks: symbols max {sym_d:.3g}, states "
+              f"{json.dumps({k: float(f'{d:.3g}') for k, d in gaps.items()})}"
+              f": {case or 'beyond the limits, or decisions differ'}")
+        if case is None:
+            fail(f"Costas receiver, {S} streams: vmap against unroll: "
+                 f"symbols {sym_d:.3g} (limit {TOL_VMAP_SYM}), states "
+                 f"{st_d:.3g} (limit {TOL_VMAP_STATE}), the same decisions "
+                 f"{same_bits}")
+        del rounds, res
+    return main_launches
 
 
 # ---------------------------------------------------------------- phase 21
@@ -4930,8 +5293,11 @@ def main() -> None:
     # convolutions default to TF32: hold them to float32 as well.
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    # ---- 2. build
+    # ---- 2. build (the recurrence probe's nvcc runs beside the
+    # package's)
     t0 = time.perf_counter()
+    RECURRENCE_PROBE.append(recurrence_tools().start_probe(
+        REPO / "build" / "recurrence_probe"))
     _build.load()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({_build.BUILD_DIR})")

@@ -15,7 +15,8 @@ kernel) is kept beside the library as ``<library>.log``.
 coefficient tables and the estimate chains' index arrays on the card,
 copied once per content and device.  :func:`per_slice_vmap` lets
 ``torch.func.vmap`` lift a kernel launch registered as a
-``torch.library.custom_op``: one launch a slice of the batch axis;
+``torch.library.custom_op``: one launch a slice of the batch axis (K5's
+ops; the recurrence ops have a batched rule of their own);
 :func:`per_stream` wraps a stream step so that vmap runs it once a
 stream.
 
@@ -40,9 +41,9 @@ import torch
 import torch.utils._pytree as pytree
 from torch._C._functorch import is_batchedtensor
 
-__all__ = ["load", "library_path", "nvcc_path", "device_constant",
-           "device_index", "per_slice_vmap", "per_stream", "BUILD_DIR",
-           "CSRC_DIR"]
+__all__ = ["load", "library_path", "nvcc_path", "bind_recurrence",
+           "device_constant", "device_index", "per_slice_vmap", "per_stream",
+           "BUILD_DIR", "CSRC_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -117,6 +118,32 @@ def _compile(srcs, target: Path) -> None:
                "-o", lib, *objs]])
         Path(f"{target}.log").write_text("".join(logs))
         os.replace(lib, target)
+
+
+def bind_recurrence(lib) -> None:
+    """The C signatures of ``csrc/recurrence.cu``'s two entries on
+    ``lib`` (any library built from that source)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    f32 = ctypes.c_float
+    lib.costas_loop_launch.restype = i32
+    lib.costas_loop_launch.argtypes = [
+        ptr, ptr,                  # xr, xi [B, n] planes
+        i64, i64, i64, i64,        # their row and element strides
+        i64, i64,                  # streams B, steps n
+        ptr, i64, ptr, i64,        # phase, freq [B] (device), their strides
+        i32, f32, f32,             # order, alpha, beta
+        ptr, ptr, ptr, ptr,        # yr, yi [B, n], phase out, freq out
+        ptr,                       # cudaStream_t
+    ]
+    lib.agc_scan_launch.restype = i32
+    lib.agc_scan_launch.argtypes = [
+        ptr, ptr,                  # xr, xi [B, n] planes
+        i64, i64, i64, i64,        # their row and element strides
+        i64, i64,                  # streams B, steps n
+        ptr, i64, f32, f32,        # gain [B] (device), its stride, target, rate
+        ptr, ptr, ptr,             # yr, yi [B, n], gain out
+        ptr,                       # cudaStream_t
+    ]
 
 
 def _bind(lib) -> None:
@@ -209,20 +236,7 @@ def _bind(lib) -> None:
         i32, i32, ptr,             # D's tile width, rows per block, n2 table
         ptr, ptr, ptr,             # yr, yi, cudaStream_t
     ]
-    lib.costas_loop_launch.restype = i32
-    lib.costas_loop_launch.argtypes = [
-        ptr, ptr, i64, i64,        # xr, xi, their element stride, steps
-        ptr, ptr, i32, f32, f32,   # phase, freq (device), order, alpha, beta
-        ptr, ptr, i64,             # yr, yi, their element stride
-        ptr, ptr, ptr,             # phase out, freq out, cudaStream_t
-    ]
-    lib.agc_scan_launch.restype = i32
-    lib.agc_scan_launch.argtypes = [
-        ptr, ptr, i64, i64,        # xr, xi, their element stride, steps
-        ptr, f32, f32,             # gain (device), target, rate
-        ptr, ptr, i64,             # yr, yi, their element stride
-        ptr, ptr,                  # gain out, cudaStream_t
-    ]
+    bind_recurrence(lib)
     lib.halo_ring_max_pairs.restype = i32
     lib.halo_ring_max_pairs.argtypes = []
     lib.halo_ring_launch.restype = i32

@@ -210,7 +210,7 @@ def make_stream_fn(cfg: QpskRxStreamConfig):
         u = ((_build.device_constant(m_host, dev) - 2.0) * sps + tau) + L
         base = torch.floor(u).to(torch.int64)
         mu = u - base.to(torch.float32)
-        p = [torch.take(y_ext, base + o) for o in (-1, 0, 1, 2)]
+        p = [torch.index_select(y_ext, 0, base + o) for o in (-1, 0, 1, 2)]
         w = [-mu * (mu - 1) * (mu - 2) / 6,
              (mu + 1) * (mu - 1) * (mu - 2) / 2,
              -(mu + 1) * mu * (mu - 2) / 2,

@@ -133,7 +133,9 @@ def costas_loop_block(symbols, state, alpha: float, beta: float,
     NCO: per symbol ``c = s e^{-j ph}``, ``err = arg(-c^M) / M``, ``fr +=
     beta err``, ``ph = ph + fr + alpha err``.  The recurrence has no
     parallel form: on CUDA tensors one launch of the recurrence kernel
-    walks the block, on CPU tensors its plain version does.
+    walks the block (under ``torch.func.vmap``, one launch walks every
+    stream's block, a lane a stream), on CPU tensors its plain version
+    does.
 
     Args:
       symbols: [N] complex64 symbol-rate input.

@@ -197,11 +197,13 @@ class BatchedStreamRunner(StreamRunner):
       is the tuple of the B per-stream states.
     * ``mode="vmap"``: ``torch.func.vmap`` of the step over stacked
       states (every state leaf must be a tensor).  Batched products may
-      round otherwise.  The QPSK symbol and panel kernels (K5) and the
-      recurrence kernels are custom ops whose vmap rule launches them
-      once a stream, so the QPSK stream steps and the Costas receiver
-      lift; a step that launches another ctypes kernel (K1, K2 and K4
-      on it, K8, K9: as in the JAX package, whose Pallas kernels on
+      round otherwise.  The QPSK symbol and panel kernels (K5) are
+      custom ops whose vmap rule launches them once a stream; the
+      recurrence kernels' rule launches once for all the streams (one
+      lane a stream), so a round of the Costas receiver is one Costas
+      launch.  So the QPSK stream steps and the Costas receiver lift; a
+      step that launches another ctypes kernel (K1, K2 and K4 on it, K8,
+      K9: as in the JAX package, whose Pallas kernels on
       ``memory_space=ANY`` operands cannot be vmapped) raises a
       ValueError that says so.
 

@@ -4,7 +4,8 @@ state leaf), a stream continued from a JAX state
 (``stream_state_from_jax``), and mirrors of tests/test_qpsk_rx_stream.py's
 Costas tests on the port: zero bit errors after 3 acquisition blocks over
 34 blocks with a carrier-frequency step, driven through StreamRunner; the
-same decisions at two block sizes; a finite output at sps 8.
+same decisions at two block sizes; a finite output at sps 8; vmap of the
+step over 3 streams against jax.vmap of the JAX package's.
 
 Tolerances (measured on the CPU over 8 blocks of three channels, then
 about 5x): the two packages' float32 sin/cos/atan2 and their complex
@@ -16,6 +17,7 @@ symbols stay within 3.7e-5 of JAX; the matched filter's and the
 interpolator's carried samples, turned by theta, within 1.4e-4.
 TOL_SYM = 2e-4 on the symbols, TOL_STATE = 1e-3 on every state leaf."""
 
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -216,3 +218,35 @@ def test_config_and_state_errors():
     assert set(st) == set(jstream.init_state(
         jstream.QpskRxStreamConfig(block=1024)))
     assert isinstance(st["costas"], tuple) and len(st["costas"]) == 2
+
+
+def _stack_states(states, stack):
+    """B per-stream state dicts as one dict of stacked leaves (``costas``
+    a pair)."""
+    return {k: (tuple(stack([s[k][i] for s in states]) for i in range(2))
+                if k == "costas" else stack([s[k] for s in states]))
+            for k in states[0]}
+
+
+def test_vmapped_receiver_matches_jax_vmap():
+    # 3 streams, each its own channel (seed and carrier), 4 blocks of
+    # 1024: torch.func.vmap of the port's step (one Costas call for the
+    # three streams) against jax.vmap of the JAX package's step
+    B, S = 1024, 3
+    chans = [_channel(4 * B // SPS + 64, 20 + s,
+                      w=(0.008 + 0.002 * s,) * 2)[1] for s in range(S)]
+    jcfg = jstream.QpskRxStreamConfig(block=B)
+    tcfg = tstream.QpskRxStreamConfig(block=B)
+    jstep = jax.vmap(jstream.make_stream_fn(jcfg))
+    tstep = torch.func.vmap(tstream.make_stream_fn(tcfg))
+    st_j = _stack_states([jstream.init_state(jcfg)] * S, jnp.stack)
+    st_t = _stack_states([tstream.init_state(tcfg, "cpu") for _ in range(S)],
+                         torch.stack)
+    for b in range(4):
+        x = np.stack([_pairs(r, B, b) for r in chans])
+        y_j, st_j = jstep(st_j, jnp.asarray(x))
+        y_t, st_t = tstep(st_t, torch.from_numpy(x))
+        assert y_t.shape == (S, B // SPS, 2)
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j),
+                                   atol=TOL_SYM, rtol=0, err_msg=f"block {b}")
+        _assert_state_close(st_t, st_j, f"block {b}")

@@ -2,7 +2,9 @@
 loop and the per-sample AGC against their plain versions on the same
 card, one launch a call and no host synchronisation; the complex entries
 of ``ops`` on the kernels; vmap of both over two streams equal to two
-calls.
+calls, in one launch; the batched entries (B streams a launch: a partial
+warp, several blocks; contiguous, row-strided and stride-2 planes)
+against the batched plain versions bit for bit.
 
 Both sides are float32 with every product and sum rounded as written, and
 the card's accurate sincosf/atan2f/hypotf/logf/expf on both, so the
@@ -118,14 +120,83 @@ def test_recurrences_under_vmap(cuda):
     y, (ph, fr) = torch.func.vmap(
         lambda x, p, f: demodulation.costas_loop_block(x, (p, f), 0.1,
                                                        0.005))(xs, *st)
-    assert R.launches["costas_loop"] == n0 + 2
+    # one launch for both streams (the batched vmap rule)
+    assert R.launches["costas_loop"] == n0 + 1
     for b in range(2):
         yb, (pb, fb) = demodulation.costas_loop_block(
             xs[b], (st[0][b], st[1][b]), 0.1, 0.005)
         assert torch.equal(y[b], yb)
         assert torch.equal(ph[b], pb) and torch.equal(fr[b], fb)
     g0 = torch.ones(2, device=cuda)
+    n0 = R.launches["agc_scan"]
     ya, ga = torch.func.vmap(lambda x, g: agc.agc_scan(x, g))(xs, g0)
+    assert R.launches["agc_scan"] == n0 + 1
     for b in range(2):
         yb, gb = agc.agc_scan(xs[b], g0[b])
         assert torch.equal(ya[b], yb) and torch.equal(ga[b], gb)
+
+
+def _planes(x, layout):
+    """Re/im planes of complex [B, n] ``x``: contiguous, the stride-2 views
+    of the complex tensor, or rows of a wider buffer (row stride n + 7)."""
+    if layout == "views":
+        v = torch.view_as_real(x)
+        return v[..., 0], v[..., 1]
+    if layout == "row_stride":
+        B, n = x.shape
+        buf = torch.zeros(2, B, n + 7, device=x.device)
+        buf[0, :, 3:3 + n] = x.real
+        buf[1, :, 3:3 + n] = x.imag
+        return buf[0, :, 3:3 + n], buf[1, :, 3:3 + n]
+    return x.real.contiguous(), x.imag.contiguous()
+
+
+def _launch_no_sync(fn, key):
+    n0 = R.launches[key]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert R.launches[key] == n0 + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "views", "row_stride"])
+@pytest.mark.parametrize("n", [0, 1, 17, 2048])
+@pytest.mark.parametrize("B", [1, 33, 257])
+def test_costas_batched_kernel_against_batched_plain(cuda, B, n, layout):
+    x = _locked_symbols(B * n, B + n, cuda).reshape(B, n)
+    xr, xi = _planes(x, layout)
+    ph0 = torch.linspace(-0.05, 0.05, B, device=cuda)
+    fr0 = torch.full((B,), -2e-4, device=cuda)
+    for order in (4, 2):
+        got = _launch_no_sync(lambda: R.costas_loop_batched(
+            xr, xi, ph0, fr0, 0.1, 0.005, order), "costas_loop")
+        want = R.costas_loop_batched_plain(xr, xi, ph0, fr0, 0.1, 0.005,
+                                           order)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.device.type == "cuda"
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "views", "row_stride"])
+@pytest.mark.parametrize("n", [0, 1, 17, 2048])
+@pytest.mark.parametrize("B", [1, 33, 257])
+def test_agc_batched_kernel_against_batched_plain(cuda, B, n, layout):
+    rng = np.random.default_rng(B + n)
+    k = np.arange(n)
+    amp = np.where(k < n // 2, 0.1, 2.0)
+    x = (amp * np.exp(1j * (0.3 * k + rng.uniform(0, 6, (B, 1))))
+         + 0.01 * rng.normal(size=(B, n)))
+    xr, xi = _planes(torch.from_numpy(x.astype(np.complex64)).to(cuda),
+                     layout)
+    g0 = torch.linspace(0.5, 2.0, B, device=cuda)
+    got = _launch_no_sync(lambda: R.agc_scan_batched(xr, xi, g0, 1.0, 5e-2),
+                          "agc_scan")
+    want = R.agc_scan_batched_plain(xr, xi, g0, 1.0, 5e-2)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
