@@ -1,0 +1,9 @@
+"""idle_enqueue_pct: share of the traced window, in %, in which no
+kernel, copy or set runs on the card while the host is inside
+``stream.step`` (the serving loop enqueuing a block's step)."""
+
+from benchlib.spans import idle_pct_under
+
+
+def read(run):
+    return idle_pct_under(run, "stream.step")

@@ -47,6 +47,7 @@ from comms_tpu_torch.kernels import channelizer as _CK
 from comms_tpu_torch.ops import channelizer as _chan
 from comms_tpu_torch.ops import demodulation as _demod
 from comms_tpu_torch.ops import fir as _fir
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["band_monitor_planar", "band_monitor_plain", "halo_rows",
            "zero_spec_halo", "partition", "CTX_SAMPLES", "step_samples"]
@@ -145,6 +146,7 @@ def _check(re, im, prototype, audio_taps, audio_dec, ctx_re, ctx_im,
     return k, M, h, at.astype(np.float32), dec, hrows
 
 
+@scoped("kernel.band_monitor")
 def band_monitor_planar(re, im, prototype, audio_taps, audio_dec: int,
                         ctx_re, ctx_im, spec_halo_re, spec_halo_im,
                         num_channels: int):

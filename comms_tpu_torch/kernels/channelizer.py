@@ -42,6 +42,7 @@ import torch
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.ops import channelizer as _chan
 from comms_tpu_torch.ops import fir as _fir
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["channelize_planar", "channelize", "channelize_plain",
            "partition", "step_samples", "CTX_SAMPLES", "K"]
@@ -134,6 +135,7 @@ def root_table(k: int) -> np.ndarray:
     return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
 
 
+@scoped("kernel.channelizer")
 def channelize_planar(re, im, prototype, ctx_re, ctx_im,
                       num_channels: int = K):
     """Run the channelizer over f32 planes.

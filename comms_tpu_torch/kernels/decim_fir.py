@@ -43,6 +43,7 @@ import torch
 
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.ops import fir as _fir
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["fir_decimate_planar", "fir_decimate_block", "decim_ctx_zero",
            "max_taps", "poly_fir_planar", "poly_fir", "step_samples",
@@ -213,6 +214,7 @@ def _run(xr, xi, taps, dec: int, ctx_r, ctx_i):
     return out
 
 
+@scoped("kernel.decim_fir")
 def fir_decimate_planar(xr, xi, taps, dec: int, ctx_r, ctx_i,
                         tile_rows: int = 128, mode: str = "split"):
     """Decimating FIR on float32 re/im planes.
@@ -299,6 +301,7 @@ def fir_decimate_block(x, taps, dec: int, ctx, tile_rows: int = 8):
     return _block_result(x, taps, yr, yi, nr, ni, ctx.shape[0])
 
 
+@scoped("kernel.decim_fir")
 def poly_fir_planar(re, im, taps, ctx_re, ctx_im, dec: int):
     """Decimating FIR with the TPU poly-FIR kernel's contract.
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from comms_tpu_torch.kernels import _build
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["fft_planar", "fft_complex", "psd_planar", "psd_stream_planar",
            "fft_plain", "psd_plain", "psd_stream_plain", "rows_per_step",
@@ -143,6 +144,7 @@ def _window(window, n: int, dev) -> torch.Tensor:
     return w
 
 
+@scoped("kernel.fft")
 def fft_planar(re, im, n: int = 1024, precision: str = "split_bf16",
                scale: float = 1.0):
     """Batched n-point FFT of float32 planes ``[rows, n]``, one transform
@@ -222,6 +224,7 @@ def _row_view(re, im):
     return re, im
 
 
+@scoped("kernel.fft")
 def psd_planar(re, im, window, n: int = 1024, row_weights=None,
                demean: bool = True, precision: str = "split_bf16"):
     """Fused window + FFT + |.|^2 + accumulate over segment rows.
@@ -256,6 +259,7 @@ def psd_planar(re, im, window, n: int = 1024, row_weights=None,
     return _launch_psd("psd", xr, xi, w, rw, demean, n)
 
 
+@scoped("kernel.fft")
 def psd_stream_planar(re, im, window, n: int = 1024, demean: bool = True,
                       precision: str = "split_bf16"):
     """Welch accumulator over raw flat float32 planes ``[N]`` at 50%

@@ -44,6 +44,7 @@ import torch
 
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.kernels import fft as _fft
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["psd_big_planar", "fft_big_planar", "welch_numerator",
            "factorize", "supported_big", "sparse_window_bins",
@@ -235,6 +236,7 @@ def stage_a(re, im, n1: int, n2: int, window=None, means=None,
     return d[..., 0], d[..., 1], sums
 
 
+@scoped("kernel.fft_big")
 def _stage_a_d(re, im, n1: int, n2: int, window=None, means=None,
                emit_sums: bool = False):
     """:func:`stage_a` with D as one float32 tensor of (re, im) pairs
@@ -318,6 +320,7 @@ def psd_big_planar(re, im, n1: int, n2: int, window=None, means=None,
     return psd_stage_b(d, n1, n2, sb, sums)
 
 
+@scoped("kernel.fft_big")
 def psd_stage_b(d, n1: int, n2: int, sparse=None, sums=None):
     """The PSD's stage B alone on stage A's D (float32 [segments, n2/ct,
     n1, ct, 2] (re, im) pairs): ``out[N]``, natural order.  ``sparse``:
@@ -407,6 +410,7 @@ def fft_big_planar(re, im, n1: int, n2: int, precision: str = "split_bf16"):
     return fft_stage_b(d, n1, n2)
 
 
+@scoped("kernel.fft_big")
 def fft_stage_b(d, n1: int, n2: int):
     """The FFT's stage B alone on stage A's D (float32 [segments, n2/ct,
     n1, ct, 2] (re, im) pairs): ``(yr, yi)`` [segments, N], natural

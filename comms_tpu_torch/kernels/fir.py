@@ -37,6 +37,7 @@ import torch
 
 from comms_tpu_torch.kernels import decim_fir as _DF
 from comms_tpu_torch.ops import fir as _fir
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["fir_planar", "fir_block", "planar_ctx_zero",
            "planar_ctx_from_tail", "fir_plain", "MAX_TAPS"]
@@ -104,6 +105,7 @@ def _launch(xr, xi, taps, ctx_r, ctx_i):
             ni.reshape(_HALO_ROWS, _LANES))
 
 
+@scoped("kernel.fir")
 def fir_planar(xr, xi, taps, ctx_r, ctx_i, tile_rows: int = 1024,
                mode: str = "split"):
     """Streaming FIR on float32 re/im planes.

@@ -43,6 +43,7 @@ import torch
 
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.ops import demodulation, fir
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["fm_chain_fused", "fm_chain_plain", "zero_ctx", "IN_PER_STEP",
            "CTX_X", "CTX_D"]
@@ -104,6 +105,7 @@ def _check(re_u8, im_u8, ctx, taps1, taps2):
     return _taps_f32(taps1, "taps1"), _taps_f32(taps2, "taps2")
 
 
+@scoped("kernel.fm_chain")
 def fm_chain_fused(re_u8, im_u8, ctx, taps1, taps2):
     """Run the fused chain over planar u8 planes.
 

@@ -65,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from comms_tpu_torch.kernels import _build
+from comms_tpu_torch.runtime.metrics import named_scope, scoped
 
 __all__ = ["exchange", "exchange_plain", "ring_halo_exchange",
            "ring_halo_exchange_plain", "source_offset", "launch_floor",
@@ -204,6 +205,7 @@ def _launch_pairs(lib, stream, srcs, dsts, nbytes: int) -> int:
     return -(-n // MAX_PAIRS)
 
 
+@scoped("kernel.halo_ring")
 def exchange(rings, halo: int, ctxs=None):
     """One ring shift of every ring (module docstring).  ``rings``: list of
     rings, each a list of shard tensors in ring order; ``ctxs``: None (the
@@ -611,7 +613,8 @@ def _transfer_ipc(pairs, like):
                     srcs.append(pairs[i][1].data_ptr())
                     dsts.append(base + j * stride)
         if srcs:
-            n = _launch_pairs(lib, stream, srcs, dsts, nbytes)
+            with named_scope("kernel.halo_ring"):
+                n = _launch_pairs(lib, stream, srcs, dsts, nbytes)
             if sends:
                 cross_launches += n
         for k, _ in sends:

@@ -31,6 +31,7 @@ import torch
 
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.ops import demodulation as _demod
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["panel_reductions", "panel_reductions_plain", "HW_MAX"]
 
@@ -58,6 +59,7 @@ def _check(p13, p24, hw: int, sps: int):
         raise ValueError("p13 and p24 must share a device")
 
 
+@scoped("kernel.panel_reduce")
 def panel_reductions(p13, p24, hw: int, sps: int = 4):
     """[16, 128] boundary reductions of the panel accumulators (module
     docstring)."""

@@ -58,6 +58,7 @@ import torch
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.ops import demodulation as _demod
 from comms_tpu_torch.ops import fir as _fir
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["qpsk_symbol_gemm", "qpsk_symbol_gemm_scalars", "qpsk_panels",
            "qpsk_symbol_plain", "qpsk_panels_plain", "modulated_taps_plain",
@@ -177,6 +178,7 @@ def partition(n: int):
     schema="(Tensor re, Tensor im, Tensor? ctx_re, Tensor? ctx_im, int md, "
            "Tensor? fr, Tensor? fi, Tensor? params, Tensor? rows, "
            "Tensor? scal_f, Tensor? scal_i, str[] count) -> (Tensor, Tensor)")
+@scoped("kernel.qpsk_sym")
 def _symbols_op(re, im, ctx_re, ctx_im, md, fr, fi, params, rows, scal_f,
                 scal_i, count):
     """One launch of the symbol kernel: the traced-taps form (``fr, fi,
@@ -243,6 +245,7 @@ def panel_chunking(n: int, hw: int):
 @torch.library.custom_op(
     "comms_tpu_torch::qpsk_panels", mutates_args=(), device_types="cuda",
     schema="(Tensor re, Tensor im, int hw, str[] count) -> Tensor")
+@scoped("kernel.qpsk_sym")
 def _panels_op(re, im, hw, count):
     """One call of the panel kernels: the panels ``[4, 128, 128 + 2hw]``.
     Adds one to ``launches`` under each name in ``count``."""

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from comms_tpu_torch.kernels import _build
+from comms_tpu_torch.runtime.metrics import scoped
 
 __all__ = ["costas_loop", "costas_loop_batched", "costas_loop_plain",
            "costas_loop_batched_plain", "agc_scan", "agc_scan_batched",
@@ -101,6 +102,7 @@ def _raise(rc: int, what: str):
     "comms_tpu_torch::costas_loop", mutates_args=(), device_types="cuda",
     schema="(Tensor xr, Tensor xi, Tensor phase, Tensor freq, int order, "
            "float alpha, float beta) -> (Tensor, Tensor, Tensor, Tensor)")
+@scoped("kernel.recurrence")
 def _costas_op(xr, xi, phase, freq, order, alpha, beta):
     lib = _build.load()
     (yr, yi), (ph, fr) = _outputs(xr, 2)
@@ -122,6 +124,7 @@ def _costas_op(xr, xi, phase, freq, order, alpha, beta):
     "comms_tpu_torch::agc_scan", mutates_args=(), device_types="cuda",
     schema="(Tensor xr, Tensor xi, Tensor gain, float target, float rate) "
            "-> (Tensor, Tensor, Tensor)")
+@scoped("kernel.recurrence")
 def _agc_op(xr, xi, gain, target, rate):
     lib = _build.load()
     (yr, yi), (g,) = _outputs(xr, 1)

@@ -64,12 +64,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from comms_tpu_torch.kernels import _build
 from comms_tpu_torch.kernels import qpsk_sym as _QS
 from comms_tpu_torch.models import qpsk_rx as _rx
 from comms_tpu_torch.ops import demodulation, fir, taps
+from comms_tpu_torch.runtime.metrics import named_scope
 
 __all__ = ["QpskRxStreamConfig", "make_stream_fn", "init_state",
            "stream_state_from_jax", "init_state_fast", "make_stream_fast_fn",
@@ -356,15 +356,15 @@ def make_stream_fused_fn(cfg=None, est_lag: int = 1):
     meta = {"nd": cfg.panel_hw, "fdt": torch.float32}   # carried panels'
 
     def step(state, re, im):
-        with record_function("qpsk_stream.symbols_and_panels"):
+        with named_scope("qpsk_stream.symbols_and_panels"):
             sr, si, panels = _QS.qpsk_symbol_gemm_scalars(
                 re, im, cfg.mf_taps, state["omega"], state["lag"],
                 state["shift2"], phase0=state["theta"],
                 ctx=(state["ctx_re"], state["ctx_im"]),
                 panels_hw=cfg.panel_hw)
-        with record_function("qpsk_stream.symbol_tail"):
+        with named_scope("qpsk_stream.symbol_tail"):
             sym_planes, dtail = _symbol_tail(state, sr, si)
-        with record_function("qpsk_stream.estimates"):
+        with named_scope("qpsk_stream.estimates"):
             # at est_lag 2 the carried panels of block k-1: no data path
             # into this block's kernel
             P = (panels if est_lag == 1 else

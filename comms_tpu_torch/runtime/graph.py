@@ -27,6 +27,7 @@ import torch
 
 from comms_tpu_torch.parallel import sharding as _sh
 from comms_tpu_torch.runtime.block import BlockOp
+from comms_tpu_torch.runtime.metrics import named_scope
 
 __all__ = ["Graph", "GraphNotConnectedError"]
 
@@ -182,7 +183,7 @@ class Graph:
             new_ops = dict(state["ops"])
             for spec in order:
                 ins = tuple(values[p] for p in spec.inputs)
-                with torch.profiler.record_function(spec.name):
+                with named_scope(spec.name):
                     if isinstance(spec.op, BlockOp):
                         x = ins[0] if len(ins) == 1 else (ins or None)
                         y, s = op_apply(spec.op, state["ops"][spec.name], x)

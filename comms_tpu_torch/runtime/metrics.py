@@ -2,16 +2,24 @@
 helpers.
 
 Counterpart of :mod:`comms_tpu.runtime.metrics`: the meter, the barrier,
-the fixed cost of a barrier (:func:`sync_overhead`), profiler
-annotations (:func:`named_scope`, ``torch.profiler.record_function``), a
+the fixed cost of a barrier (:func:`sync_overhead`), the port's one kind
+of span (:func:`named_scope`, and :func:`scoped` for a whole function), a
 Chrome trace of a region (:func:`trace`) and :func:`roofline`, whose
 peaks the caller passes: the card's, never a TPU's.
+
+Spans are ``torch.profiler.record_function`` ranges, opened only while a
+profiler session records (:func:`trace`, or any
+``torch.profiler.profile``): they sit on the profiler's host clock, onto
+which it maps the card's events, so a span lines up with the kernels and
+copies it enqueued.  With no session recording a span costs one flag
+check.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import time
 
@@ -20,7 +28,7 @@ import torch
 from comms_tpu_torch.runtime import _tree
 
 __all__ = ["ThroughputMeter", "device_sync", "sync_overhead", "named_scope",
-           "trace", "roofline"]
+           "scoped", "trace", "roofline"]
 
 
 @dataclasses.dataclass
@@ -98,10 +106,32 @@ def sync_overhead(reps: int = 5, device="cuda") -> float:
     return best
 
 
-def named_scope(name: str):
-    """Profiler annotation for an op region
-    (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+_recording = torch._C._autograd._profiler_enabled
+_CLOSED = contextlib.nullcontext()
+
+
+def named_scope(name: str, args=None):
+    """A span named ``name`` around a region: while a ``torch.profiler``
+    session records, ``torch.profiler.record_function(name, str(args))``
+    (``args``, e.g. a block's sequence number, kept out of the name so
+    that spans of one name group together); otherwise a shared no-op
+    context, with no call into the dispatcher."""
+    if not _recording():
+        return _CLOSED
+    return torch.profiler.record_function(
+        name, None if args is None else str(args))
+
+
+def scoped(name: str):
+    """Decorator: every call of the function inside ``named_scope(name)``
+    (the kernel wrappers' ``kernel.<module>`` spans)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            with named_scope(name):
+                return fn(*a, **kw)
+        return run
+    return wrap
 
 
 @contextlib.contextmanager

@@ -23,12 +23,13 @@ import torch
 
 from comms_tpu_torch.parallel import sharding as _sh
 from comms_tpu_torch.runtime.block import BlockOp
+from comms_tpu_torch.runtime.metrics import named_scope
 
 __all__ = ["Pipeline"]
 
 
 def _named(i: int, op):
-    return torch.profiler.record_function(f"{i}_{type(op).__name__}")
+    return named_scope(f"{i}_{type(op).__name__}")
 
 
 def _spec(x, axis):

@@ -13,6 +13,14 @@ loop that drives a block function over a block source with up to
 ``depth`` bounds how far the host runs ahead of the sink (the
 reference's channel capacity, ``src/node/graph.rs:44-47``).
 
+Under a ``torch.profiler`` session each block opens one span
+(:func:`~comms_tpu_torch.runtime.metrics.named_scope`) per boundary:
+``stream.upload``, ``stream.step``, ``stream.d2h`` (the D2H copies and
+the event's record), and ``stream.drain`` with its children
+``stream.wait`` (the event), ``stream.copy`` (the host copy of every
+leaf) and ``stream.sink``.  Each span's argument is the block's sequence
+number; the runner is FIFO, so a block's spans pair up by their order.
+
 Three hazards the design handles:
 
 * a non-blocking H2D copy from pageable memory runs synchronously, so
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from comms_tpu_torch.runtime import _tree
-from comms_tpu_torch.runtime.metrics import ThroughputMeter
+from comms_tpu_torch.runtime.metrics import ThroughputMeter, named_scope
 
 __all__ = ["StreamRunner", "BatchedStreamRunner"]
 
@@ -76,6 +84,7 @@ class StreamRunner:
         self.depth = max(1, int(depth))
         self.device = torch.device(device)
         self.blocks_done = 0
+        self.blocks_drained = 0
 
     def _upload(self, leaf):
         if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
@@ -99,18 +108,25 @@ class StreamRunner:
         return buf
 
     def _drain(self, y, event) -> None:
-        if event is not None:
-            event.synchronize()
-        if self.sink is None:
-            return
-        if event is None:
-            self.sink(_tree.tree_map(lambda t: t.numpy(), y))
-        else:
-            # The sink gets its own copy, so the pinned buffer goes back
-            # to the cache: a sink that keeps every block would
-            # otherwise force a new (slow, synchronising) pinned
-            # allocation per block.
-            self.sink(_tree.tree_map(lambda t: t.numpy().copy(), y))
+        seq = self.blocks_drained
+        self.blocks_drained += 1
+        with named_scope("stream.drain", seq):
+            with named_scope("stream.wait", seq):
+                if event is not None:
+                    event.synchronize()
+            if self.sink is None:
+                return
+            with named_scope("stream.copy", seq):
+                if event is None:
+                    out = _tree.tree_map(lambda t: t.numpy(), y)
+                else:
+                    # The sink gets its own copy, so the pinned buffer
+                    # goes back to the cache: a sink that keeps every
+                    # block would otherwise force a new (slow,
+                    # synchronising) pinned allocation per block.
+                    out = _tree.tree_map(lambda t: t.numpy().copy(), y)
+            with named_scope("stream.sink", seq):
+                self.sink(out)
 
     def run(self, max_blocks: Optional[int] = None) -> ThroughputMeter:
         """Stream until the source ends (or ``max_blocks``).  Returns
@@ -120,15 +136,19 @@ class StreamRunner:
         for i, x in enumerate(self.source):
             if max_blocks is not None and i >= max_blocks:
                 break
+            seq = self.blocks_done
             with self.meter.block(self.samples_of(x)):
-                y, self.state = self.block_fn(self.state,
-                                              _tree.tree_map(self._upload, x))
-                if self.sink is not None:
-                    y = _tree.tree_map(self._start_host_copy, y)
-                event = None
-                if cuda:
-                    event = torch.cuda.Event()
-                    event.record(torch.cuda.current_stream(self.device))
+                with named_scope("stream.upload", seq):
+                    x = _tree.tree_map(self._upload, x)
+                with named_scope("stream.step", seq):
+                    y, self.state = self.block_fn(self.state, x)
+                with named_scope("stream.d2h", seq):
+                    if self.sink is not None:
+                        y = _tree.tree_map(self._start_host_copy, y)
+                    event = None
+                    if cuda:
+                        event = torch.cuda.Event()
+                        event.record(torch.cuda.current_stream(self.device))
                 pending.append((y, event))
                 if len(pending) > self.depth:
                     self._drain(*pending.popleft())
