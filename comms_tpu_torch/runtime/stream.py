@@ -17,18 +17,27 @@ Under a ``torch.profiler`` session each block opens one span
 (:func:`~comms_tpu_torch.runtime.metrics.named_scope`) per boundary:
 ``stream.upload``, ``stream.step``, ``stream.d2h`` (the D2H copies and
 the event's record), and ``stream.drain`` with its children
-``stream.wait`` (the event), ``stream.copy`` (the host copy of every
-leaf) and ``stream.sink``.  Each span's argument is the block's sequence
+``stream.wait`` (the event), ``stream.copy`` (the hand-off of every
+leaf to the sink, with a child ``stream.lend`` where the block is lent)
+and ``stream.sink``.  Each span's argument is the block's sequence
 number; the runner is FIFO, so a block's spans pair up by their order.
 
-Three hazards the design handles:
+Four hazards the design handles:
 
 * a non-blocking H2D copy from pageable memory runs synchronously, so
   host blocks are first copied into pinned staging memory;
 * that copy also protects against a source that reuses its buffer (the
   copy is made before the next block is asked for);
 * a non-blocking D2H copy read before it completes is garbage, so a
-  result reaches the sink only after its block's event has completed.
+  result reaches the sink only after its block's event has completed;
+* the sink is lent the pinned D2H buffers themselves, as numpy arrays
+  over their memory, which goes back to the pinned-memory cache only
+  when the sink drops the arrays.  A sink that kept every block would
+  pin all of it, and force a new (slow, synchronising) pinned
+  allocation per block; so a block is lent only while fewer than
+  ``depth`` lent blocks are still alive (the runner watches the arrays
+  it lent through weak references), and copied otherwise.  A leaf the
+  step returned on the host is always copied: the step may reuse it.
 
 Staging and result buffers come from PyTorch's pinned-memory cache,
 which does not hand a buffer out again until the copies recorded on it
@@ -43,6 +52,7 @@ them (a loop over the streams, or ``torch.func.vmap``).
 
 from __future__ import annotations
 
+import weakref
 from collections import deque
 from typing import Any, Callable, Iterable, Optional, Sequence
 
@@ -62,11 +72,15 @@ class StreamRunner:
       block_fn: block step.
       state: initial state (tensors on ``device``).
       source: iterable of input blocks (numpy or tensors).
-      sink: optional callable receiving each output block as numpy.
+      sink: optional callable receiving each output block as numpy
+        arrays it owns: nothing else writes their memory while they live.
       meter: optional ThroughputMeter; ``samples_of(x)`` counts the
         samples per input block (defaults to ``len``).
       depth: max in-flight (dispatched, not yet drained) blocks.
       device: where the blocks run.
+
+    ``blocks_drained`` counts the blocks drained, ``blocks_lent`` those
+    the sink was lent rather than given a copy of.
     """
 
     def __init__(self, block_fn: Callable, state: Any,
@@ -85,6 +99,9 @@ class StreamRunner:
         self.device = torch.device(device)
         self.blocks_done = 0
         self.blocks_drained = 0
+        self.blocks_lent = 0
+        self._owned = {}    # id -> weakref of the runner's host buffers
+        self._lent = []     # weakrefs to the arrays of each lent block
 
     def _upload(self, leaf):
         if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
@@ -99,13 +116,50 @@ class StreamRunner:
         staged.copy_(host)
         return staged.to(self.device, non_blocking=True)
 
-    @staticmethod
-    def _start_host_copy(leaf):
+    def _start_host_copy(self, leaf):
         if leaf.device.type != "cuda":
             return leaf
         buf = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
         buf.copy_(leaf, non_blocking=True)
+        return self._own(buf)
+
+    def _own(self, buf):
+        """Note ``buf`` as a host buffer of the runner's own, which the
+        drain may lend to the sink."""
+        self._owned[id(buf)] = weakref.ref(buf)
         return buf
+
+    def _hand_off(self, y, seq):
+        """Block ``y``'s leaves as the sink's arrays: the block is lent
+        (the runner's own buffers as arrays over their memory) while
+        fewer than ``depth`` lent blocks are alive, else copied."""
+        mine = set()
+        for t in _tree.leaves(y):
+            ref = self._owned.pop(id(t), None)
+            if ref is not None and ref() is t:
+                mine.add(id(t))
+        # ``t.numpy()``'s base is a new tensor over ``t``'s storage, not
+        # ``t``: a lent block is alive while one of its arrays is (a
+        # view, such as a stream's row of a batched round, keeps its
+        # array as its base).
+        self._lent = [b for b in self._lent
+                      if any(r() is not None for r in b)]
+        if not mine or len(self._lent) >= self.depth:
+            return _tree.tree_map(lambda t: t.numpy().copy(), y)
+        refs = []
+
+        def lend(t):
+            if id(t) not in mine:
+                return t.numpy().copy()
+            a = t.numpy()
+            refs.append(weakref.ref(a))
+            return a
+
+        with named_scope("stream.lend", seq):
+            out = _tree.tree_map(lend, y)
+        self._lent.append(refs)
+        self.blocks_lent += 1
+        return out
 
     def _drain(self, y, event) -> None:
         seq = self.blocks_drained
@@ -120,11 +174,7 @@ class StreamRunner:
                 if event is None:
                     out = _tree.tree_map(lambda t: t.numpy(), y)
                 else:
-                    # The sink gets its own copy, so the pinned buffer
-                    # goes back to the cache: a sink that keeps every
-                    # block would otherwise force a new (slow,
-                    # synchronising) pinned allocation per block.
-                    out = _tree.tree_map(lambda t: t.numpy().copy(), y)
+                    out = self._hand_off(y, seq)
             with named_scope("stream.sink", seq):
                 self.sink(out)
 

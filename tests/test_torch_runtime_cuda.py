@@ -5,7 +5,11 @@ block function; the transmitters' pipelines bit-equal to their block
 functions and to the CPU; a sharded pipeline against the unsharded one
 with K12's launches counted; a checkpoint resumed bit for bit; the Graph
 feedback loop; the batched runner against separate runs, and vmap
-refusing a step that launches a ctypes kernel.
+refusing a step that launches a ctypes kernel; the serving loop's
+pinned hand-off: the pinned-memory cache keeps a block while a copy into
+it is pending and while an array over it lives, and the runner lends a
+sink its D2H blocks, at most ``depth`` alive at once, bit-equal to the
+step's outputs copied to the host.
 
 This file imports no jax (the machine with the card has none), so it
 runs there on its own, without the repository's conftest:
@@ -14,6 +18,8 @@ runs there on its own, without the repository's conftest:
 
 Without a CUDA device the tests skip: the kernels have no CPU mode.
 """
+
+from collections import deque
 
 import numpy as np
 import pytest
@@ -190,3 +196,160 @@ def test_batched_runner_on_the_card(cuda):
                               device=cuda)
     with pytest.raises(ValueError, match="vmap"):
         r.run()
+
+
+
+def _toy(state, x):
+    # two leaves a block, each on the card
+    return (x * 2.0 + state, (x - state)[:1000]), state + 0.5
+
+
+def _toy_blocks(cuda, n, seed=0, size=1 << 16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(size, device=cuda, generator=g) for _ in range(n)]
+
+
+def _toy_want(cuda, xs):
+    """The step's outputs, each copied to the host as it comes."""
+    s, want = torch.zeros(xs[0].shape, device=cuda), []
+    for x in xs:
+        y, s = _toy(s, x)
+        want.append(tuple(t.cpu().numpy() for t in y))
+    return want
+
+
+def _equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+
+
+def _lent(y) -> bool:
+    return not y[0].flags.owndata
+
+
+@pytest.mark.cuda
+def test_pinned_cache_holds_a_block_copied_into_or_viewed(cuda):
+    print("torch", torch.__version__, "cuda", torch.version.cuda)
+    x = torch.randn(1 << 20, device=cuda)
+    # a copy into the block is pending (behind a spin of the card): the
+    # cache does not hand the freed block out again
+    torch.cuda._sleep(200_000_000)
+    buf = torch.empty(x.shape, pin_memory=True)
+    buf.copy_(x, non_blocking=True)
+    pending = buf.data_ptr()
+    del buf
+    other = torch.empty(x.shape, pin_memory=True)
+    assert other.data_ptr() != pending
+    torch.cuda.synchronize()
+    # an array over the block keeps it from the cache; once dropped, the
+    # block comes round again
+    buf = torch.empty(x.shape, pin_memory=True)
+    buf.copy_(x, non_blocking=True)
+    torch.cuda.synchronize()
+    a = buf.numpy()
+    ptr = a.ctypes.data
+    del buf
+    held = torch.empty(x.shape, pin_memory=True)
+    assert held.data_ptr() != ptr
+    np.testing.assert_array_equal(a, x.cpu().numpy())
+    del a
+    again = torch.empty(x.shape, pin_memory=True)
+    assert again.data_ptr() == ptr
+
+
+@pytest.mark.cuda
+def test_runner_lends_every_block_to_a_dropping_sink(cuda):
+    xs = _toy_blocks(cuda, 12)
+    want = _toy_want(cuda, xs)
+    got, ptrs = [], set()
+
+    def sink(y):
+        assert not any(a.flags.owndata for a in y)
+        ptrs.add(y[0].ctypes.data)
+        got.append(tuple(a.copy() for a in y))
+
+    r = T.StreamRunner(_toy, torch.zeros(xs[0].shape, device=cuda),
+                       iter(xs), sink=sink, depth=3, device=cuda)
+    r.run()
+    assert r.blocks_lent == r.blocks_drained == len(xs)
+    _equal(got, want)
+    # dropped blocks go back to the pinned cache and are used again
+    assert len(ptrs) < len(xs)
+
+
+class _Keeping:
+    """A sink that keeps every block ("all"), or as the benchmark's
+    window does every 3rd block's last two and the last ("window"), and
+    checks that no more than ``depth`` of the blocks it holds are lent."""
+
+    def __init__(self, keep, depth):
+        self.keep, self.depth, self.k = keep, depth, 0
+        self.kept, self.picked, self.last = [], deque(maxlen=2), None
+
+    def held(self):
+        if self.keep == "all":
+            return self.kept
+        return sorted(dict([*self.picked, self.last]).items())
+
+    def __call__(self, y):
+        if self.keep == "all":
+            self.kept.append((self.k, y))
+        else:
+            if self.k % 3 == 0:
+                self.picked.append((self.k, y))
+            self.last = (self.k, y)
+        self.k += 1
+        assert sum(_lent(b) for _, b in self.held()) <= self.depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["all", "window"])
+@pytest.mark.parametrize("depth", [2, 4])
+def test_runner_lends_at_most_depth_kept_blocks(cuda, depth, keep):
+    n = 14
+    xs = _toy_blocks(cuda, n, seed=depth)
+    want = _toy_want(cuda, xs)
+    sink = _Keeping(keep, depth)
+    r = T.StreamRunner(_toy, torch.zeros(xs[0].shape, device=cuda),
+                       iter(xs), sink=sink, depth=depth, device=cuda)
+    r.run()
+    held = sink.held()
+    if keep == "all":
+        # the first ``depth`` are lent, the rest copies as before
+        assert r.blocks_lent == depth
+        assert [_lent(y) for _, y in held] == [k < depth for k in range(n)]
+    elif depth == 4:
+        assert r.blocks_lent == n       # three held at most: all lent
+    else:
+        assert depth < r.blocks_lent < n
+    # what the sink held to the end is intact, in memory of its own
+    _equal([y for _, y in held], [want[k] for k, _ in held])
+    arrays = [a for _, y in held for a in y]
+    for i, a in enumerate(arrays):
+        assert not any(np.shares_memory(a, b) for b in arrays[i + 1:])
+
+
+@pytest.mark.cuda
+def test_batched_runner_lends_rounds_to_per_stream_sinks(cuda):
+    B, n = 3, 9
+    xs = [_toy_blocks(cuda, n, seed=10 + b) for b in range(B)]
+    want = [_toy_want(cuda, x) for x in xs]
+    outs = [[] for _ in range(B)]
+    sinks = [outs[0].append,                                   # keeps all
+             lambda y: outs[1].append(tuple(a.copy() for a in y)),  # drops
+             lambda y: outs[2].__setitem__(slice(None), [y])]   # the last
+    r = T.BatchedStreamRunner(
+        _toy, [torch.zeros(xs[0][0].shape, device=cuda)] * B,
+        batched_source=[torch.stack([x[k] for x in xs]) for k in range(n)],
+        sinks=sinks, depth=2, device=cuda)
+    r.run()
+    # stream 0's views keep the first two rounds lent: then copies (a
+    # stream's view has its round's array as its base)
+    assert r.blocks_lent == 2
+    assert [not y[0].base.flags.owndata for y in outs[0]] == \
+        [k < 2 for k in range(n)]
+    _equal(outs[0], want[0])
+    _equal(outs[1], want[1])
+    _equal(outs[2], want[2][-1:])

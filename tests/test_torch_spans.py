@@ -6,6 +6,8 @@
   ``stream.wait``, ``stream.copy`` and ``stream.sink``, the last three
   inside their ``stream.drain``, each carrying its block's sequence
   number as its argument;
+* a block lent to the sink opens ``stream.lend`` inside its
+  ``stream.copy`` (driven with a stand-in for a completed CUDA event);
 * ``Pipeline.step`` and a compiled ``Graph`` emit their op spans, and the
   kernel wrappers their ``kernel.<module>`` spans (on the CPU around
   their plain versions);
@@ -134,6 +136,28 @@ def test_runner_without_sink_drains_without_copy(counting):
         assert len(_spans(events, name)) == n, name
     assert not _spans(events, "stream.copy")
     assert not _spans(events, "stream.sink")
+
+
+class _Done:
+    def synchronize(self):
+        pass
+
+
+def test_lent_blocks_open_a_lend_span_inside_their_copy(counting):
+    got = []
+    r = StreamRunner(None, None, (), sink=got.append, depth=2, device=CPU)
+
+    def drain_four():
+        for k in range(4):
+            r._drain((r._own(torch.full((4,), float(k))),), _Done())
+
+    _, events = _profiled(drain_four)
+    # got keeps every block: blocks 0 and 1 are lent, 2 and 3 copied
+    copies, lends = _spans(events, "stream.copy"), _spans(events,
+                                                          "stream.lend")
+    assert len(copies) == 4 and len(lends) == r.blocks_lent == 2
+    assert all(_inside(a, b) for a, b in zip(lends, copies))
+    assert [a for s, a in counting if s == "stream.lend"] == ["0", "1"]
 
 
 FM_BLOCK = 128_000      # both FirDecimate stages on K2's route

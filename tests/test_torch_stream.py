@@ -1,5 +1,8 @@
 """comms_tpu_torch.runtime: StreamRunner gives a plain loop's outputs in
-order at any depth, and the package imports neither jax nor comms_tpu."""
+order at any depth, lends its own host buffers to the sink while fewer
+than ``depth`` lent blocks are alive (driven here with a stand-in for a
+completed CUDA event), and the package imports neither jax nor
+comms_tpu."""
 
 import os
 import subprocess
@@ -13,6 +16,7 @@ import torch
 
 from comms_tpu_torch.models import fm_receiver as tfm
 from comms_tpu_torch.runtime import StreamRunner, ThroughputMeter, device_sync
+from comms_tpu_torch.runtime.stream import BatchedStreamRunner
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -104,6 +108,88 @@ def test_stream_runner_meter_covers_the_final_drain():
     meter = runner.run()
     assert meter.blocks == 6 and meter.samples == 60
     assert meter.seconds >= 6 * delay
+
+
+class _Done:
+    """Stands in for a block's CUDA event once its copies have completed."""
+
+    def synchronize(self):
+        pass
+
+
+def _lent(a, buf) -> bool:
+    return np.shares_memory(a, buf.numpy())
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_drain_lends_while_fewer_than_depth_lent_blocks_live(depth):
+    got = []
+    r = StreamRunner(None, None, (), sink=got.append, depth=depth,
+                     device="cpu")
+    n = depth + 3
+    bufs = [r._own(torch.full((8,), float(k))) for k in range(n)]
+    for b in bufs:
+        r._drain(b, _Done())
+    # a sink that keeps every block: the first ``depth`` are lent, the
+    # rest copied, whatever still holds the buffers themselves
+    assert [_lent(a, b) for a, b in zip(got, bufs)] == \
+        [k < depth for k in range(n)]
+    for k, a in enumerate(got):
+        np.testing.assert_array_equal(a, np.full(8, k, np.float32))
+    assert r.blocks_lent == depth and r.blocks_drained == n
+    # dropping a lent array frees its block's place
+    del got[0]
+    b = r._own(torch.full((8,), 9.0))
+    r._drain(b, _Done())
+    assert _lent(got[-1], b) and r.blocks_lent == depth + 1
+
+
+def test_drain_lends_every_block_to_a_dropping_sink():
+    seen = []
+    r = StreamRunner(None, None, (),
+                     sink=lambda y: seen.append(y[0].flags.owndata), depth=2,
+                     device="cpu")
+    for k in range(7):
+        r._drain((r._own(torch.full((4,), float(k))),), _Done())
+    assert seen == [False] * 7
+    assert r.blocks_lent == r.blocks_drained == 7
+
+
+def test_drain_copies_what_the_runner_did_not_make():
+    got = []
+    r = StreamRunner(None, None, (), sink=got.append, depth=2, device="cpu")
+    mine, steps = r._own(torch.arange(4.0)), torch.arange(3.0)
+    r._drain({"a": mine, "b": steps}, _Done())
+    assert _lent(got[0]["a"], mine) and not _lent(got[0]["b"], steps)
+    assert r.blocks_lent == 1
+    # a block with none of the runner's buffers is copied and not counted
+    r._drain((steps,), _Done())
+    assert not _lent(got[1][0], steps) and r.blocks_lent == 1
+    # a buffer is lent once: its drain forgets it
+    r._drain((mine,), _Done())
+    assert not _lent(got[2][0], mine) and r.blocks_lent == 1
+
+
+def test_drain_counts_a_batched_round_alive_through_its_streams_views():
+    B = 3
+    outs = [[] for _ in range(B)]
+    r = BatchedStreamRunner(lambda s, x: (x, s), [None] * B,
+                            batched_source=[], sinks=[o.append for o in outs],
+                            depth=1, device="cpu")
+    rounds = [r._own(torch.arange(24.0).reshape(B, 2, 4) + 100 * k)
+              for k in range(3)]
+    r._drain(rounds[0], _Done())
+    # each stream keeps a view of its row: the round stays lent
+    assert all(_lent(o[0], rounds[0]) for o in outs)
+    r._drain(rounds[1], _Done())
+    assert not any(_lent(o[1], rounds[1]) for o in outs)
+    for o in outs:
+        o.clear()
+    r._drain(rounds[2], _Done())
+    assert all(_lent(o[0], rounds[2]) for o in outs)
+    assert r.blocks_lent == 2
+    for b, o in enumerate(outs):
+        np.testing.assert_array_equal(o[0], rounds[2][b].numpy())
 
 
 def test_device_sync_checksum():
