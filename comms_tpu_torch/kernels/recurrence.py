@@ -22,16 +22,19 @@ with any strides (the re/im views of a complex tensor as they are); the
 state is read and written on the device, so a call never synchronises
 with the host.
 
-The wrappers launch the kernels for CUDA tensors and run the plain
-versions (:func:`costas_loop_plain`, :func:`agc_scan_plain`,
-:func:`costas_loop_batched_plain`, :func:`agc_scan_batched_plain`: one
-PyTorch operation a step, in the kernel's order and rounding) for CPU
-tensors; any other device raises.  Each kernel is one
-``torch.library`` custom op over ``[B, n]`` planes, whose vmap rule
+Each kernel is one ``torch.library`` custom op over ``[B, n]`` planes,
+which every wrapper calls on either device: on CUDA tensors it launches
+the kernel, on CPU tensors it runs the batched plain version
+(:func:`costas_loop_batched_plain`, :func:`agc_scan_batched_plain`: one
+PyTorch operation a step over every stream, in the kernel's order and
+rounding, bit-equal to the single-stream :func:`costas_loop_plain` and
+:func:`agc_scan_plain`); any other device raises.  The op's vmap rule
 moves the vmapped axis to the front of the stream axis (expanding an
-argument that is not batched) and launches once: ``torch.func.vmap`` of
-a step that calls :func:`costas_loop` is one launch for all its streams.
-``launches`` counts the kernel launches per entry.
+argument that is not batched) and calls the op once:
+``torch.func.vmap`` of a step that calls :func:`costas_loop` is one op
+for all its streams, on the card one launch.  ``launches`` counts the
+kernel launches per entry and ``lanes`` the streams they carried; the
+CPU kernels launch nothing and count nothing.
 """
 
 from __future__ import annotations
@@ -46,8 +49,16 @@ __all__ = ["costas_loop", "costas_loop_batched", "costas_loop_plain",
            "costas_loop_batched_plain", "agc_scan", "agc_scan_batched",
            "agc_scan_plain", "agc_scan_batched_plain", "complex_ipow"]
 
-# Kernel launches per entry since import (or since a caller reset them).
+# Kernel launches per entry, and the streams they carried, since import
+# (or since a caller reset them).
 launches = {"costas_loop": 0, "agc_scan": 0}
+lanes = {"costas_loop": 0, "agc_scan": 0}
+
+
+def _count(entry: str, B: int):
+    if B:
+        launches[entry] += 1
+        lanes[entry] += B
 
 
 def _check(xr, xi, ndim: int, *state):
@@ -115,8 +126,7 @@ def _costas_op(xr, xi, phase, freq, order, alpha, beta):
             _state_stride(phase), freq.data_ptr(), _state_stride(freq),
             order, alpha, beta, yr.data_ptr(), yi.data_ptr(), ph.data_ptr(),
             fr.data_ptr(), stream), "Costas loop")
-    if B:
-        launches["costas_loop"] += 1
+    _count("costas_loop", B)
     return yr, yi, ph, fr
 
 
@@ -136,9 +146,20 @@ def _agc_op(xr, xi, gain, target, rate):
             *_plane_strides(xi), B, n, gain.data_ptr(), _state_stride(gain),
             target, rate, yr.data_ptr(), yi.data_ptr(), g.data_ptr(),
             stream), "AGC scan")
-    if B:
-        launches["agc_scan"] += 1
+    _count("agc_scan", B)
     return yr, yi, g
+
+
+@_costas_op.register_kernel("cpu")
+def _costas_cpu(xr, xi, phase, freq, order, alpha, beta):
+    return tuple(t.clone() for t in costas_loop_batched_plain(
+        xr, xi, phase, freq, alpha, beta, order))
+
+
+@_agc_op.register_kernel("cpu")
+def _agc_cpu(xr, xi, gain, target, rate):
+    return tuple(t.clone() for t in agc_scan_batched_plain(
+        xr, xi, gain, target, rate))
 
 
 def batched_vmap_rule(op):
@@ -205,8 +226,6 @@ def costas_loop(xr, xi, phase, freq, alpha: float, beta: float,
     _check(xr, xi, 1, phase, freq)
     phase, freq = phase.reshape(()), freq.reshape(())
     order = _order(order)
-    if xr.device.type == "cpu":
-        return costas_loop_plain(xr, xi, phase, freq, alpha, beta, order)
     yr, yi, ph, fr = _costas_op(xr[None], xi[None], phase.reshape(1),
                                 freq.reshape(1), order, _f32(alpha),
                                 _f32(beta))
@@ -220,9 +239,6 @@ def costas_loop_batched(xr, xi, phase, freq, alpha: float, beta: float,
     _check(xr, xi, 2, phase, freq)
     phase, freq = phase.reshape(-1), freq.reshape(-1)
     order = _order(order)
-    if xr.device.type == "cpu":
-        return costas_loop_batched_plain(xr, xi, phase, freq, alpha, beta,
-                                         order)
     return _costas_op(xr, xi, phase, freq, order, _f32(alpha), _f32(beta))
 
 
@@ -232,8 +248,6 @@ def agc_scan(xr, xi, gain, target: float = 1.0, rate: float = 1e-2):
     card: the batched kernel at B = 1."""
     _check(xr, xi, 1, gain)
     gain = gain.reshape(())
-    if xr.device.type == "cpu":
-        return agc_scan_plain(xr, xi, gain, target, rate)
     yr, yi, g = _agc_op(xr[None], xi[None], gain.reshape(1), _f32(target),
                         _f32(rate))
     return yr[0], yi[0], g[0]
@@ -244,8 +258,6 @@ def agc_scan_batched(xr, xi, gain, target: float = 1.0, rate: float = 1e-2):
     gains ``[B]``."""
     _check(xr, xi, 2, gain)
     gain = gain.reshape(-1)
-    if xr.device.type == "cpu":
-        return agc_scan_batched_plain(xr, xi, gain, target, rate)
     return _agc_op(xr, xi, gain, _f32(target), _f32(rate))
 
 

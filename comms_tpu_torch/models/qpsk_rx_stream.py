@@ -18,7 +18,11 @@ the decision-directed Costas loop at symbol rate
 (``ops.demodulation.costas_loop_block``: one launch of the recurrence
 kernel on the card).  Its boundary speaks float32 pairs: ``[N, 2]`` in,
 ``[N/sps, 2]`` out.  The 4-fold phase ambiguity and the constant lag are
-resolved by the caller (``qpsk_rx.resolve_ambiguity``).
+resolved by the caller (``qpsk_rx.resolve_ambiguity``).  The carried
+phases (the mixer's ``theta``, the Costas loop's) are kept mod 2 pi, so
+their float32 rounding stays that of a number below 2 pi however long
+the stream runs (the JAX package carries the Costas phase unwrapped:
+the two packages' states then differ by whole turns).
 
 **The estimate-pipelined steps** (``cfg``: a ``qpsk_rx.QpskRxConfig``):
 block k's full-rate work, the fused symbol product over the raw planes,
@@ -49,12 +53,14 @@ its symbols.
 State dicts interchange between the steps and with the JAX package's
 (:func:`state_from_jax`, :func:`stream_state_from_jax`), so a stream can
 continue mid-way.  A step never synchronises with the host:
-``StreamRunner`` can keep several blocks in flight.  The fused step marks
+``StreamRunner`` can keep several blocks in flight.  The Costas-loop step
+marks its five stages as ``qpsk_costas.*`` ranges; the fused step marks
 its three stages (symbols and panels, the symbol tail, the estimate
 chain) as ``torch.profiler`` ranges named ``qpsk_stream.*``, so a trace
 splits a block's time by stage.  Under ``torch.func.vmap`` (the batched
-runner's ``mode="vmap"``) each of these steps (and ``sym_fn``,
-``est_fn``) runs once a stream (``kernels._build.per_stream``), since the
+runner's ``mode="vmap"``) the Costas-loop step is batched, one Costas
+launch for every stream; the fast, fused and split steps (and ``sym_fn``,
+``est_fn``) run once a stream (``kernels._build.per_stream``), since the
 symbol tail's and the estimate chain's sums would round otherwise on a
 batch: a vmapped step equals a loop over its streams bit for bit.
 Outside vmap the wrapper calls the step directly.
@@ -161,14 +167,20 @@ def _pairs(z):
 def make_stream_fn(cfg: QpskRxStreamConfig):
     """``step(state, iq_pairs_f32[N, 2]) -> (sym_pairs_f32[M, 2],
     new_state)`` with M = N/sps symbols a block, gap-free.  Nothing is
-    read back to the host."""
+    read back to the host.  Its five stages open one span each
+    (``qpsk_costas.carrier``, ``.mf``, ``.timing``, ``.interp``,
+    ``.costas``); under ``torch.func.vmap`` (``runtime.stream.lift``)
+    the step runs once for every stream, so each span opens once a
+    round, and its Costas loop is one launch for every stream."""
     sps = cfg.sps
     N = cfg.block
     M = cfg.syms_per_block
     L = cfg.L_CTX
     half = float(sps) / 2.0
     k_host = np.arange(N, dtype=np.float32)
-    m_host = np.arange(M, dtype=np.float32)
+    # the grid's whole samples, (m - 2) * sps + L - 1 .. + 2, on the host
+    taps_host = ((np.arange(M)[:, None] - 2) * sps + L
+                 + np.arange(-1, 3)[None, :]).T.copy()
 
     def step(state, iq_pairs):
         dev = iq_pairs.device
@@ -177,53 +189,66 @@ def make_stream_fn(cfg: QpskRxStreamConfig):
 
         # -- 1. coarse carrier (EMA; the first block takes the raw
         # estimate)
-        f_b = demodulation.frequency_offset_estimate(
-            torch.complex(xr, xi)).to(torch.float32)
-        omega = torch.where(
-            warm > 0,
-            state["omega"] + cfg.g_freq * _wrap_pi(f_b - state["omega"]),
-            f_b)
-        # x * e^{-j a} on the planes, in XLA's complex-product order
-        a = state["theta"] + omega * _build.device_constant(k_host, dev)
-        c, s = torch.cos(a), torch.sin(a)
-        xc = torch.complex(xr * c + xi * s, xi * c - xr * s)
-        theta = torch.remainder(state["theta"] + omega * N, _TWO_PI)
+        with named_scope("qpsk_costas.carrier"):
+            f_b = demodulation.frequency_offset_estimate(
+                torch.complex(xr, xi)).to(torch.float32)
+            omega = torch.where(
+                warm > 0,
+                state["omega"] + cfg.g_freq * _wrap_pi(f_b - state["omega"]),
+                f_b)
+            # x * e^{-j a} on the planes, in XLA's complex-product order
+            a = state["theta"] + omega * _build.device_constant(k_host, dev)
+            c, s = torch.cos(a), torch.sin(a)
+            xc = torch.complex(xr * c + xi * s, xi * c - xr * s)
+            theta = torch.remainder(state["theta"] + omega * N, _TWO_PI)
 
         # -- 2. matched filter (streaming)
-        mf_ctx = torch.complex(state["mf_ctx"][:, 0], state["mf_ctx"][:, 1])
-        y, mf_ctx = fir.fir_block(xc, cfg.mf, mf_ctx)
+        with named_scope("qpsk_costas.mf"):
+            mf_ctx = torch.complex(state["mf_ctx"][:, 0],
+                                   state["mf_ctx"][:, 1])
+            y, mf_ctx = fir.fir_block(xc, cfg.mf, mf_ctx)
 
         # -- 3. timing: NDA estimate -> EMA'd sampling phase tau
-        t_b = cfg.timing.estimate(y).to(torch.float32)
-        tau_b = torch.remainder(t_b, float(sps))
-        d = torch.remainder(tau_b - state["tau"] + half, float(sps)) - half
-        tau = torch.where(warm > 0,
-                          torch.remainder(state["tau"] + cfg.g_tau * d,
-                                          float(sps)),
-                          tau_b)
+        with named_scope("qpsk_costas.timing"):
+            t_b = cfg.timing.estimate(y).to(torch.float32)
+            tau_b = torch.remainder(t_b, float(sps))
+            d = torch.remainder(tau_b - state["tau"] + half,
+                                float(sps)) - half
+            tau = torch.where(warm > 0,
+                              torch.remainder(state["tau"] + cfg.g_tau * d,
+                                              float(sps)),
+                              tau_b)
 
         # -- interpolate the continuous symbol grid m*sps + tau (the
-        # 2-symbol latency keeps every cubic window inside [ctx ++ block])
-        ictx = torch.complex(state["interp_ctx"][:, 0],
-                             state["interp_ctx"][:, 1])
-        y_ext = torch.cat([ictx, y])
-        u = ((_build.device_constant(m_host, dev) - 2.0) * sps + tau) + L
-        base = torch.floor(u).to(torch.int64)
-        mu = u - base.to(torch.float32)
-        p = [torch.index_select(y_ext, 0, base + o) for o in (-1, 0, 1, 2)]
-        w = [-mu * (mu - 1) * (mu - 2) / 6,
-             (mu + 1) * (mu - 1) * (mu - 2) / 2,
-             -(mu + 1) * mu * (mu - 2) / 2,
-             (mu + 1) * mu * (mu - 1) / 6]
-        sr = ((w[0] * p[0].real + w[1] * p[1].real) + w[2] * p[2].real
-              + w[3] * p[3].real)
-        si = ((w[0] * p[0].imag + w[1] * p[1].imag) + w[2] * p[2].imag
-              + w[3] * p[3].imag)
+        # 2-symbol latency keeps every cubic window inside [ctx ++ block]);
+        # the grid's whole samples are integers and its fraction tau's,
+        # so a position late in the block rounds no more than one early
+        with named_scope("qpsk_costas.interp"):
+            ictx = torch.complex(state["interp_ctx"][:, 0],
+                                 state["interp_ctx"][:, 1])
+            y_ext = torch.cat([ictx, y])
+            whole = torch.floor(tau)
+            mu = tau - whole
+            at = _build.device_index(taps_host, dev) + whole.to(torch.int64)
+            p = [torch.index_select(y_ext, 0, at[o]) for o in range(4)]
+            w = [-mu * (mu - 1) * (mu - 2) / 6,
+                 (mu + 1) * (mu - 1) * (mu - 2) / 2,
+                 -(mu + 1) * mu * (mu - 2) / 2,
+                 (mu + 1) * mu * (mu - 1) / 6]
+            sr = ((w[0] * p[0].real + w[1] * p[1].real) + w[2] * p[2].real
+                  + w[3] * p[3].real)
+            si = ((w[0] * p[0].imag + w[1] * p[1].imag) + w[2] * p[2].imag
+                  + w[3] * p[3].imag)
 
         # -- 4. fine carrier: decision-directed Costas at symbol rate
-        sym, costas = demodulation.costas_loop_block(
-            torch.complex(sr, si), state["costas"], cfg.costas_alpha,
-            cfg.costas_beta, order=4)
+        with named_scope("qpsk_costas.costas"):
+            sym, (ph, fr) = demodulation.costas_loop_block(
+                torch.complex(sr, si), state["costas"], cfg.costas_alpha,
+                cfg.costas_beta, order=4)
+            # the loop's phase carried mod 2 pi, as theta is: unwrapped it
+            # grows by the residual offset every symbol, and its float32
+            # rounding with it
+            costas = (torch.remainder(ph, _TWO_PI), fr)
 
         new_state = {
             "mf_ctx": _pairs(mf_ctx),

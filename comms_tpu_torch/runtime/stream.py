@@ -47,7 +47,8 @@ used as it is.
 
 :class:`BatchedStreamRunner` serves B independent streams through one
 runner: each round stacks the B blocks and runs the per-stream step over
-them (a loop over the streams, or ``torch.func.vmap``).
+them (a loop over the streams, or ``torch.func.vmap``), the step that
+:func:`lift` makes of the per-stream step.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ import torch
 from comms_tpu_torch.runtime import _tree
 from comms_tpu_torch.runtime.metrics import ThroughputMeter, named_scope
 
-__all__ = ["StreamRunner", "BatchedStreamRunner"]
+__all__ = ["StreamRunner", "BatchedStreamRunner", "lift"]
 
 
 class StreamRunner:
@@ -218,8 +219,24 @@ def _stack(*leaves):
     return np.stack(leaves)
 
 
-def _lifted_step(block_fn: Callable, B: int, mode: str) -> Callable:
-    """The per-stream step over a leading stream axis of the blocks."""
+def lift(block_fn: Callable, states: Sequence[Any], mode: str = "unroll"):
+    """The per-stream step ``block_fn(state, x) -> (y, state)`` over a
+    leading stream axis of the blocks, and its carried start state:
+    ``(step, state0)`` for the B = ``len(states)`` per-stream ``states``.
+
+    * ``mode="unroll"`` and ``mode="map"``: a loop over the streams, each
+      the unbatched step on its slice; ``state0`` is the tuple of the B
+      states.
+    * ``mode="vmap"``: ``torch.func.vmap`` of the step; ``state0`` stacks
+      the states leaf by leaf (every leaf must be a tensor).
+
+    ``step(state0, x)`` with ``x``'s leaves ``[B, ...]`` returns the
+    outputs stacked ``[B, ...]`` and the next carried state.
+    :class:`BatchedStreamRunner` serves this step; a caller with its own
+    serving loop can serve the same step."""
+    B = len(states)
+    if B < 1:
+        raise ValueError("need at least one stream state")
     if mode in ("unroll", "map"):
         def lifted(states, x):
             ys, sts = [], []
@@ -229,29 +246,34 @@ def _lifted_step(block_fn: Callable, B: int, mode: str) -> Callable:
                 sts.append(s)
             return _tree.tree_map(lambda *ls: torch.stack(ls), *ys), \
                 tuple(sts)
-        return lifted
-    if mode == "vmap":
-        vm = torch.func.vmap(block_fn)
+        return lifted, tuple(states)
+    if mode != "vmap":
+        raise ValueError(
+            f"mode must be 'unroll', 'map' or 'vmap', got {mode!r}")
+    for leaf in _tree.leaves(states[0]):
+        if not isinstance(leaf, torch.Tensor):
+            raise ValueError(
+                "mode='vmap' stacks the states: every state leaf "
+                f"must be a tensor, got {type(leaf).__name__}")
+    vm = torch.func.vmap(block_fn)
 
-        def lifted(state, x):
-            try:
-                return vm(state, x)
-            except RuntimeError as e:
-                raise ValueError(
-                    "torch.func.vmap cannot run this block function over "
-                    "the stream axis: a step that reads a value on the "
-                    "host, or launches a CUDA kernel through ctypes outside "
-                    "a custom op with a vmap rule (the FM chain, "
-                    "decimating-FIR, channelizer and band-monitor kernels "
-                    "K1, K2, K8, K9, and K4 on K2's kernel), cannot be "
-                    "vmapped.  The JAX package has the same "
-                    "limit for those kernels: their Pallas operands live in "
-                    "memory_space=ANY, which jax.vmap cannot lift "
-                    "(comms_tpu/runtime/stream.py, BatchedStreamRunner); "
-                    "use mode='unroll'") from e
-        return lifted
-    raise ValueError(
-        f"mode must be 'unroll', 'map' or 'vmap', got {mode!r}")
+    def lifted(state, x):
+        try:
+            return vm(state, x)
+        except RuntimeError as e:
+            raise ValueError(
+                "torch.func.vmap cannot run this block function over "
+                "the stream axis: a step that reads a value on the "
+                "host, or launches a CUDA kernel through ctypes outside "
+                "a custom op with a vmap rule (the FM chain, "
+                "decimating-FIR, channelizer and band-monitor kernels "
+                "K1, K2, K8, K9, and K4 on K2's kernel), cannot be "
+                "vmapped.  The JAX package has the same "
+                "limit for those kernels: their Pallas operands live in "
+                "memory_space=ANY, which jax.vmap cannot lift "
+                "(comms_tpu/runtime/stream.py, BatchedStreamRunner); "
+                "use mode='unroll'") from e
+    return lifted, _tree.tree_map(lambda *ls: torch.stack(ls), *states)
 
 
 class BatchedStreamRunner(StreamRunner):
@@ -301,19 +323,8 @@ class BatchedStreamRunner(StreamRunner):
                  depth: int = 1, mode: str = "unroll",
                  batched_source: Optional[Iterable[Any]] = None,
                  device="cuda"):
+        lifted, state0 = lift(block_fn, states, mode)
         B = len(states)
-        if B < 1:
-            raise ValueError("need at least one stream state")
-        lifted = _lifted_step(block_fn, B, mode)
-        if mode == "vmap":
-            for leaf in _tree.leaves(states[0]):
-                if not isinstance(leaf, torch.Tensor):
-                    raise ValueError(
-                        "mode='vmap' stacks the states: every state leaf "
-                        f"must be a tensor, got {type(leaf).__name__}")
-            state0 = _tree.tree_map(lambda *ls: torch.stack(ls), *states)
-        else:
-            state0 = tuple(states)
 
         if batched_source is None:
             if sources is None:
