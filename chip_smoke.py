@@ -35,13 +35,15 @@ Phases (each raises on failure, so any failure exits non-zero):
    and 641 taps), the fused band monitor (K=16 and K=64, 16,777,216 samples,
    zero and mid-stream state) on a capture with one FM station at the
    centre of every channel, and on white noise at 3 x 16,384 samples;
+   the staged lag-1 demod (409,600 frames of 64 channels, both atan2s,
+   from mid-stream);
 6. band monitor main path: ``StreamRunner`` over the fused block step
    at K=16, 8 blocks of 16,777,216 after 3 warm-up blocks, depth 4,
    state chained, from device-resident and from pinned host blocks; the
-   staged block step (channelizer + decimating-FIR kernels) and the
-   64-channel channelizer model on the same blocks; fused against
-   staged, each channel's tone against its spectrum, and exact launch
-   counts per kernel;
+   staged block step (channelizer, lag-1 demod and decimating-FIR
+   kernels) and the 64-channel channelizer model on the same blocks;
+   fused against staged, each channel's tone against its spectrum, and
+   exact launch counts per kernel;
 7. kernel and plain-version times at the main paths' shapes (CUDA
    events around calls queued behind a spin kernel, so they time the
    device and not the wrapper's host code; the channelizer at K=64 and
@@ -292,6 +294,7 @@ REPO = Path(__file__).resolve().parent
 BM_BLOCK = 16_777_216
 BM_K = 16
 BM_K64 = 64
+LD_FRAMES = 409_600     # the staged demod at bm64_staged's block / K
 BM_NOISE = 16_384       # white noise runs at 3 x this
 POLY_DEC = 5
 POLY_N = 409 * 64 * POLY_DEC * 128   # 16,752,640: the poly entry's quantum
@@ -302,6 +305,7 @@ POLY_N = 409 * 64 * POLY_DEC * 128   # 16,752,640: the poly entry's quantum
 TOL_CHAN = 1e-5
 TOL_FIR = 5e-5
 TOL_BM = 2e-4
+TOL_DEMOD = 1e-6        # rad: the demod kernel's FMA-contracted atan2
 
 
 # QPSK receiver (bench.py:414-485): one 2^25-sample capture of the
@@ -858,13 +862,14 @@ def tone_ratios(audio, tones, dec: int):
 
 def band_monitor_phases(dev, card: str) -> list:
     """Phases 5, 6 and the band-monitor part of 7; returns the kernel
-    table rows of K8, K2, the K3 entry and K9."""
+    table rows of K8, K2, the K3 entry, K9 and the lag-1 demod."""
     import torch
 
     from comms_tpu_torch.kernels import band_monitor as BM
     from comms_tpu_torch.kernels import channelizer as CK
     from comms_tpu_torch.kernels import decim_fir as DF
     from comms_tpu_torch.kernels import fm_chain as FK
+    from comms_tpu_torch.kernels import lag1_demod as LD
     from comms_tpu_torch.models import channelizer as chm
     from comms_tpu_torch.models import fm_band_monitor as bm
     from comms_tpu_torch.runtime import StreamRunner
@@ -878,7 +883,7 @@ def band_monitor_phases(dev, card: str) -> list:
             return fn(*a, **kw)
         return wrapped
 
-    for mod in (CK, DF, BM):
+    for mod in (CK, DF, BM, LD):
         mod._plain = counting(mod._plain)
 
     t0 = time.perf_counter()
@@ -978,6 +983,22 @@ def band_monitor_phases(dev, card: str) -> list:
         if not errs[name][1] <= TOL_FIR:
             fail(f"{name}: {errs[name]} beyond {TOL_FIR}")
 
+    # ---- 5b'. the staged demod at bm64_staged's shape (409,600 frames of
+    # 64 channels) from mid-stream, both atan2s: d within TOL_DEMOD rad of
+    # plain, the next prev exact
+    yr64, yi64 = dev_normal(LD_FRAMES, BM_K64), dev_normal(LD_FRAMES, BM_K64)
+    prev64 = dev_normal(BM_K64, 2)
+    for fast in (True, False):
+        got = LD.lag1_demod(yr64, yi64, prev64, fast=fast)
+        want = LD.lag1_demod_plain(yr64, yi64, prev64, fast=fast)
+        torch.cuda.synchronize()
+        e = max_err(got[0], want[0])
+        errs[f"lag1_demod_{'poly' if fast else 'atan2f'}"] = (
+            e, e / float(want[0].abs().max()))
+        if not (e <= TOL_DEMOD and torch.equal(got[1], want[1])):
+            fail(f"lag1 demod (fast={fast}): d {e} rad from plain, next "
+                 f"prev equal: {torch.equal(got[1], want[1])}")
+
     # ---- 5c. fused band monitor vs plain on the station captures, from
     # zero and mid-stream state, then on white noise
     for c, re, im in ((cfg, re16, im16), (cfg64, re64, im64)):
@@ -1025,6 +1046,7 @@ def band_monitor_phases(dev, card: str) -> list:
 
     # ---- 6. the band monitor main path: every count starts at 0 here
     CK.launches = DF.launches = BM.launches = FK.launches = 0
+    LD.launches = 0
     plain_calls[0] = 0
     fblock = bm.make_fused_block_fn(cfg)
     dev_blocks = [(blk(re16, b), blk(im16, b)) for b in range(3)]
@@ -1095,11 +1117,11 @@ def band_monitor_phases(dev, card: str) -> list:
     torch.cuda.synchronize()
     main_counts = {"band_monitor": BM.launches, "channelize": CK.launches,
                    "fir_decimate": DF.launches, "fm_chain": FK.launches,
-                   "plain": plain_calls[0]}
+                   "lag1_demod": LD.launches, "plain": plain_calls[0]}
     print("band monitor main path launches:", json.dumps(main_counts))
     want_counts = {"band_monitor": 2 * (SERVE_WARMUP + SERVE_BLOCKS),
                    "channelize": 6, "fir_decimate": 3, "fm_chain": 0,
-                   "plain": 0}
+                   "lag1_demod": 3, "plain": 0}
     if main_counts != want_counts:
         fail(f"main path launches {main_counts}, expected {want_counts}")
 
@@ -1172,6 +1194,10 @@ def band_monitor_phases(dev, card: str) -> list:
             lambda: BM.band_monitor_planar(*bm_args, num_channels=BM_K),
             lambda: BM.band_monitor_plain(*bm_args, num_channels=BM_K),
             f"K={BM_K}, N={BM_BLOCK}", BM_BLOCK),
+        "lag1_demod": (
+            lambda: LD.lag1_demod(yr64, yi64, prev64),
+            lambda: LD.lag1_demod_plain(yr64, yi64, prev64),
+            f"K={BM_K64}, {LD_FRAMES} frames", BM_K64 * LD_FRAMES),
     }
     times = {}
     for name, (kern, plain, shape, n) in timed.items():
@@ -1244,6 +1270,13 @@ def band_monitor_phases(dev, card: str) -> list:
          main_counts["band_monitor"], worst("band_monitor_"),
          8 * N + 4 * N // dec,
          N * (4 * M16 + 5 * np.log2(BM_K) + 46) + 2 * T * N // dec, None),
+        # planes in, d out, prev in and out; 32 operations a sample
+        # (benchmark/benchlib/demod_cost.py)
+        ("lag1_demod", "lag1_demod.cu",
+         "none: comms_tpu/models/fm_band_monitor.py _planar_core (jnp)",
+         main_counts["lag1_demod"], worst("lag1_demod_"),
+         4 * (3 * BM_K64 * LD_FRAMES + 4 * BM_K64),
+         32 * BM_K64 * LD_FRAMES, None),
     ]
     return [kernel_row(name, f, rep, n, err, times[name][0],
                        times[name][1], nbytes, flops, lib)
@@ -4183,7 +4216,7 @@ EDGE_FM_RADIO_BLOCKS = 8         # fm_radio: 262,144-sample blocks
 EDGE_READ_REPS = 3
 KERNEL_MODULES = ("fm_chain", "decim_fir", "fir", "channelizer",
                   "band_monitor", "qpsk_sym", "panel_reduce", "fft",
-                  "fft_big", "halo_ring", "recurrence")
+                  "fft_big", "halo_ring", "recurrence", "lag1_demod")
 
 
 def launch_counts() -> dict:
@@ -4512,13 +4545,14 @@ def edge_examples(dev, card: str, iq: np.ndarray, w: np.ndarray) -> None:
         fail(f"qpsk_receiver: {errs} bit errors of {m}")
     line("qpsk_receiver", secs, got, f"{errs} bit errors of {m}")
 
-    # fm_band_monitor: the staged step at BM_BLOCK, K=16 (K8, K2)
+    # fm_band_monitor: the staged step at BM_BLOCK, K=16 (K8, the lag-1
+    # demod, K2)
     re, im, tones = station_capture(BM_BLOCK, BM_K, 21, dev)
     torch.stack([re, im], dim=-1).cpu().numpy().tofile("wide.f32")
     audio, secs, got = run_example(
         "fm_band_monitor",
         lambda: fm_band_monitor.main(["wide.f32", str(BM_K)]),
-        {"channelizer": 1, "decim_fir": None})
+        {"channelizer": 1, "decim_fir": None, "lag1_demod": 1})
     ratios = tone_ratios(torch.from_numpy(audio), tones, 4)
     if not np.isfinite(audio).all() or min(ratios) <= 10:
         fail(f"fm_band_monitor: tone ratios {ratios}")

@@ -174,6 +174,12 @@ def _bind(lib) -> None:
         ptr, ptr, ptr, ptr,        # yr, yi, next ctx r, next ctx i
         ptr,                       # cudaStream_t
     ]
+    lib.lag1_demod_launch.restype = i32
+    lib.lag1_demod_launch.argtypes = [
+        ptr, ptr, ptr,             # yr, yi [F, K], prev [K, 2]
+        i64, i32, i32,             # frames, K, polynomial atan2
+        ptr, ptr, ptr,             # d [K, F], next prev [K, 2], stream
+    ]
     lib.band_monitor_launch.restype = i32
     lib.band_monitor_launch.argtypes = [
         ptr, ptr, ptr, ptr, i32,   # re, im, ctx re, ctx im, ctx length

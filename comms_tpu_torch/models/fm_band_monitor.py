@@ -11,10 +11,10 @@ channels as a batch axis, so K receivers cost one.
 Two ways to run a block:
 
 * the staged path, :func:`make_block_fn` / :func:`make_planar_block_fn`:
-  the channelizer kernel (or tensor ops), the demod as tensor ops, and
-  the audio FIR through the decimating-FIR kernel when the block allows
-  it (:func:`_audio_tile_rows`), all channels in one launch.  State:
-  :func:`init_state`.
+  the channelizer kernel, the lag-1 demod kernel and the audio FIR
+  through the decimating-FIR kernel when the block allows it
+  (:func:`_audio_tile_rows`), each over all channels in one launch (or
+  all three as tensor ops).  State: :func:`init_state`.
 * the fused path, :func:`make_fused_block_fn`: one kernel per block
   (:mod:`comms_tpu_torch.kernels.band_monitor`) that also writes the
   next carried state.  State: :func:`init_state_fused`, the input tail
@@ -31,10 +31,10 @@ import torch
 from comms_tpu_torch.kernels import band_monitor as _BM
 from comms_tpu_torch.kernels import channelizer as _CK
 from comms_tpu_torch.kernels import decim_fir as _DF
+from comms_tpu_torch.kernels import lag1_demod as _LD
 from comms_tpu_torch.models.channelizer import (_auto_use_kernel,
                                                 _check_kernel_config)
 from comms_tpu_torch.ops import channelizer as chan
-from comms_tpu_torch.ops import demodulation as demod
 from comms_tpu_torch.ops import fir
 
 __all__ = ["BandMonitorConfig", "make_block_fn", "make_planar_block_fn",
@@ -202,17 +202,19 @@ def _audio_tile_rows(cfg: BandMonitorConfig) -> int:
     return tr if tr >= 8 else 0
 
 
-def _planar_core(cfg: BandMonitorConfig, channelize,
+def _planar_core(cfg: BandMonitorConfig, channelize, lag1_demod,
                  audio_tile_rows: int = 0, fast_demod: bool = True):
-    """The staged block body on planes.  ``audio_tile_rows`` > 0 routes
-    the audio FIR through the decimating-FIR kernel: one launch over all
-    channels, channel k as the re plane and channel k + K/2 as the im
-    plane of a batch row (real taps filter the planes independently).
-    ``fast_demod`` selects the polynomial atan2."""
+    """The staged block body on planes.  ``lag1_demod`` is the demod
+    kernel's wrapper or its plain version (:mod:`comms_tpu_torch.kernels.
+    lag1_demod`): frame-major planes in, channel-major d [K, frames] out.
+    ``audio_tile_rows`` > 0 routes the audio FIR through the
+    decimating-FIR kernel: one launch over all channels, channel k as the
+    re plane and channel k + K/2 as the im plane of a batch row (real taps
+    filter the planes independently).  ``fast_demod`` selects the
+    polynomial atan2."""
     audio_C = cfg.audio_C
     K = cfg.num_channels
     Tm1 = audio_C.size - 1
-    at2 = demod.fast_atan2 if fast_demod else torch.atan2
 
     if audio_tile_rows:
         W = cfg.audio_dec * 128
@@ -233,25 +235,9 @@ def _planar_core(cfg: BandMonitorConfig, channelize,
         ctx_pairs, prev_pairs, actxs = state
         yr, yi, nre, nim = channelize(re, im,
                                       ctx_pairs[:, 0], ctx_pairs[:, 1])
-        # Channel-major planes [K, frames]; d[j] from y[j] and y[j-1] in
-        # the fused kernel's products and order (the signs of zero
-        # products at stream start depend on it).
-        rt = yr.T.contiguous()
-        it = yi.T.contiguous()
-        a, b = rt[:, 1:], rt[:, :-1]
-        c, d_ = it[:, 1:], it[:, :-1]
-        d_int = at2(c * b - a * d_, a * b + c * d_)
-        d0 = at2(
-            it[:, 0] * prev_pairs[:, 0] - rt[:, 0] * prev_pairs[:, 1],
-            rt[:, 0] * prev_pairs[:, 0] + it[:, 0] * prev_pairs[:, 1])
-        d = torch.cat([d0[:, None], d_int], dim=1)
+        d, new_prev = lag1_demod(yr, yi, prev_pairs, fast=fast_demod)
         audio, new_actx = audio_fir(d, actxs)
-        new_state = (
-            torch.stack([nre, nim], dim=-1),
-            torch.stack([rt[:, -1], it[:, -1]], dim=-1),
-            new_actx,
-        )
-        return audio, new_state
+        return audio, (torch.stack([nre, nim], dim=-1), new_prev, new_actx)
 
     return core
 
@@ -265,6 +251,7 @@ def _staged_step(cfg: BandMonitorConfig, use_kernel, fast_demod: bool):
         if uk not in cores:
             cores[uk] = _planar_core(
                 cfg, _make_planar_channelize(cfg, uk),
+                _LD.lag1_demod if uk else _LD.lag1_demod_plain,
                 audio_tile_rows=_audio_tile_rows(cfg) if uk else 0,
                 fast_demod=fast_demod)
         return cores[uk]
@@ -285,11 +272,12 @@ def make_block_fn(cfg: BandMonitorConfig, use_kernel=None,
                   fast_demod: bool = True):
     """``(state, iq_pairs[N, 2]) -> (audio[K, M], state)``.
 
-    ``use_kernel=True`` routes the channelizer through its kernel (K |
-    128, taps_per_branch <= 16, block % 16384 == 0; an unmet constraint
-    raises here) and, when the per-channel frame count divides a kernel
-    tile (:func:`_audio_tile_rows`), the audio FIR through the
-    decimating-FIR kernel; False keeps the tensor ops; None (default)
+    ``use_kernel=True`` routes the channelizer and the demod through
+    their kernels (K | 128, taps_per_branch <= 16, block % 16384 == 0;
+    an unmet constraint raises here) and, when the per-channel frame
+    count divides a kernel tile (:func:`_audio_tile_rows`), the audio FIR
+    through the decimating-FIR kernel; False keeps the tensor ops; None
+    (default)
     picks the kernels for CUDA tensors when the constraints hold.
     ``fast_demod`` (default True) demodulates with the polynomial
     :func:`comms_tpu_torch.ops.demodulation.fast_atan2`; False with
